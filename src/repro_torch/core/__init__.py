@@ -1,0 +1,32 @@
+"""Crossbar core of the port: plans, compiled traces, torch executors.
+
+Public API:
+    Crossbar               — stateful-logic interpreter (the host oracle)
+    compile_program        — lower a Program to a packed executable trace
+    execute                — batched executors on a torch device
+    CrossbarPlan           — shared compile-then-execute plan base class
+    BinaryMatvecPlan       — §II-B partition-tree binary matrix-vector
+    tiling                 — multi-crossbar scale-out of binary matvec
+    kernel_exec            — "kernels" backend: traces on repro_torch.kernels
+"""
+from .binary_matvec import (BinaryMatvecPlan, NaiveBinaryMatvecPlan,
+                            matpim_binary_matvec)
+from .compile import (CompiledProgram, FusedSchedule, Segment,
+                      compile_program, compiled_from_state, compiled_state,
+                      fuse_program)
+from .crossbar import Crossbar, SchedulingError, decode_uint, encode_uint
+from .engine import (BACKENDS, EngineResult, execute, parse_backend,
+                     resolve_device)
+from .plan import CrossbarPlan
+from .tiling import (TiledBinaryMatvec, TiledResult, majority_sign,
+                     tiled_binary_matvec, tree_reduce)
+
+__all__ = [
+    "BACKENDS", "BinaryMatvecPlan", "CompiledProgram", "Crossbar",
+    "CrossbarPlan", "EngineResult", "FusedSchedule", "NaiveBinaryMatvecPlan",
+    "SchedulingError", "Segment", "TiledBinaryMatvec", "TiledResult",
+    "compile_program", "compiled_from_state",
+    "compiled_state", "decode_uint", "encode_uint", "execute",
+    "fuse_program", "majority_sign", "matpim_binary_matvec",
+    "parse_backend", "resolve_device", "tiled_binary_matvec", "tree_reduce",
+]
