@@ -4,35 +4,56 @@
 
 Needs one CUDA card, ``nvcc`` (``$CUDA_HOME`` or ``/usr/local/cuda``) and
 ``nvidia-smi``; imports nothing of JAX or of the reference package. Phases,
-each printing one JSON line:
+each printing one JSON line per record:
 
 1. build   — compile every CUDA source of the port (one ``nvcc`` each, all
-             started together) and print the build seconds and ptxas report.
-2. kernels — every kernel against its plain PyTorch version on the card,
-             exactly (tolerance 0: the outputs are integer popcounts, and
-             the compared call's launch count is printed), at the main
-             path's shape and at the reference's test
-             shapes; kernel, plain and library (``torch.matmul`` of the
-             unpacked ±1 operands, a yardstick the port never calls) times
-             from CUDA events — per call, and for the kernel also per launch
-             replayed from a CUDA graph, without the host — and the bound
-             from bytes and operations.
-3. engine  — ``BinaryMatvecPlan(1024, 416)`` (one tile of the main path) at
-             B ∈ {1, 20, 33} on ``torch-fused``, ``torch-unfused`` and
-             ``kernels``: all decode identically and equal numpy ``A @ x``;
-             565 cycles. Wall times of the first run (which builds the
-             replay tables) and of a second, warm run.
-4. serve   — the main path: ``PlanService(device="cuda")`` at the paper's
-             1024×1024 geometry on ``backend="kernels"`` and ``"torch"``,
-             requests of 4096×2048, 1024×384 and 300×500, then ``flush()``.
-             Launch counts are zeroed just before the kernels service runs
-             and read just after. Tickets must equal ``sign(A @ x)``; the
-             4096×2048 ticket shows 20 tiles, 565 cycles and reduce depth 3.
+             started together) and print the build seconds and ptxas report;
+             read the card's INT32 issue rate (64 ops per SM per clock at the
+             max SM clock ``nvidia-smi`` reports).
+2. kernels — every kernel against its plain PyTorch version on the card, at
+             the main path's shape (integer-valued inputs: exact, tolerance
+             0) and at the reference's test shapes (float inputs, the
+             reference's tolerances); the compared call's launch count; kernel,
+             plain and library times from CUDA events — per call, and for
+             the kernel also per launch replayed from a CUDA graph, without
+             the host — and the bound from bytes (3.35 TB/s) and operations
+             (float multiply-adds as 2 flops at 67 TFLOP/s; integer XOR,
+             popcount and add at the INT32 rate). The library call is a
+             yardstick the port never calls: ``torch.matmul`` of the unpacked
+             ±1 operands (binary_matmul), ``torch.mv`` / ``torch.matmul``
+             (splitk_matvec), ``F.conv2d`` with ``groups=B`` (the convs) and
+             ``F.conv2d`` of the unpacked ±1 floats (binary_conv2d); TF32 is
+             off for both matmul and cuDNN.
+3. engine  — ``BinaryMatvecPlan(1024, 416)`` (565 cycles) at B ∈ {1, 20,
+             33}, ``MatvecPlan(1024, 39, 8)`` (9474 cycles) at B ∈ {1, 27}
+             and ``ConvPlan(64, 8, 3, 8)`` (9800 cycles; one kernel per
+             instance) at B ∈ {1, 63}, on ``torch-fused``, ``torch-unfused``
+             and ``kernels``: all decode identically and equal the numpy
+             oracle (``sign(A @ x)``, ``A @ x mod 2^16``, the correlation mod
+             2^8). Wall times of a first and a warm run.
+4. serve   — the slice's path: ``PlanService(device="cuda")`` at the
+             paper's 1024×1024 geometry on ``backend="kernels"`` and
+             ``"torch"``, one flush of ±1 matvec (4096×2048, 1024×384,
+             300×500), 8-bit matvec (1024×1024, 300×500), a 16-bit matvec
+             (256×256, over the kernels' f32 bound: labelled
+             ``kernels:fallback-torch`` on the kernels service) and 8-bit
+             conv (two 128×128 with distinct kernels: one plan, one batch;
+             100×60) requests. Launch counts are zeroed just before the
+             kernels service runs and read just after. Every ticket must
+             equal its numpy oracle, with the tiles, cycles and reduce depth
+             the reference gives.
+5. ops     — ``kernels.ops`` on CUDA tensors: ``matvec``, ``conv2d``,
+             ``conv2d(tiled=True)``, ``conv2d_binary`` and ``binary_dense``
+             each equal their plain versions exactly, and raise their
+             kernels' launch counts, zeroed just before and read just after.
 
-Then the per-kernel summary line ``{"kernels": [...]}``, the card's name
-and power limit from ``nvidia-smi``, and the last line
-``{"ok": true, "device": {...}}``. Any failed check raises: the script exits
-non-zero and prints no result line. Without CUDA it exits 2.
+Then the per-kernel summary line ``{"kernels": [...]}`` (``launches`` from
+the serve phase for binary_matmul, splitk_matvec and conv2d_shift, from the
+ops phase for conv2d_shift_tiled and binary_conv2d; the other numbers from
+each kernel's main-path row), the card's name and power limit from
+``nvidia-smi``, and the last line ``{"ok": true, "device": {...}}``. Any
+failed check raises: the script exits non-zero and prints no result line.
+Without CUDA it exits 2.
 """
 from __future__ import annotations
 
@@ -49,11 +70,12 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM data-sheet rates: HBM bandwidth, and
-# the 67 TFLOP/s non-tensor float32 rate, the data sheet's only rate for scalar
-# 32-bit ALU work, applied to the kernel's integer XOR / popcount / add.
+# H100 SXM data-sheet rates: HBM bandwidth, and the 67 TFLOP/s float32 rate
+# outside the tensor cores (an FMA counted as two flops). Integer work is
+# counted against the INT32 issue rate read from the card (int32_rate).
 HBM_BYTES_PER_S = 3.35e12
-SCALAR_OPS_PER_S = 67e12
+F32_FLOPS_PER_S = 67e12
+INT32_OPS_PER_SM_CLOCK = 64
 
 RECORDS = []
 
@@ -104,6 +126,26 @@ def graph_ms(torch, fn, trials: int = 21, per_graph: int = 20) -> float:
         / per_graph
 
 
+def smi(query: str) -> str:
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader",
+         "-i", "0"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip()
+    check(bool(out), f"nvidia-smi printed nothing for {query}")
+    return out
+
+
+def int32_rate(torch) -> float:
+    """The card's INT32 issue rate: 64 ops per SM per clock × SMs × the
+    max SM clock ``nvidia-smi`` reports (one op per XOR, popcount or add)."""
+    mhz = float(smi("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rate = INT32_OPS_PER_SM_CLOCK * sms * mhz * 1e6
+    emit("rates", sms=sms, max_sm_clock_mhz=mhz, int32_ops_per_s=rate,
+         f32_flops_per_s=F32_FLOPS_PER_S, hbm_bytes_per_s=HBM_BYTES_PER_S)
+    return rate
+
+
 def phase_build() -> None:
     from repro_torch import kernels
     sources = sorted(p.name for p in kernels.CSRC.glob("*.cu"))
@@ -118,172 +160,491 @@ def phase_build() -> None:
                 for s in sources})
 
 
-def binary_matmul_case(torch, B, M, N, Kw, seed):
-    """Packed ±1 operands on the card, and their unpacked float32 form."""
-    from repro_torch.kernels.ref import pack_bits
-    rng = np.random.default_rng(seed)
-    lead = (B,) if B else ()
-    a = rng.choice([-1.0, 1.0], size=lead + (M, 32 * Kw)).astype(np.float32)
-    b = rng.choice([-1.0, 1.0], size=lead + (N, 32 * Kw)).astype(np.float32)
-    dev = torch.device("cuda")
-    af, bf = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
-    return pack_bits(af), pack_bits(bf), af, bf
+def kernel_row(torch, name, shape, kernel, plain, library, args, nbytes,
+               ops, ops_per_s, tol=None, counter=None):
+    """Run ``kernel`` once against ``plain`` on the same CUDA inputs (exact
+    when ``tol`` is None, else ``(rtol, atol)``), then time the kernel, its
+    CUDA graph replay, the plain version and the library yardstick.
+    ``counter`` is the wrapper that counts launches (``kernel`` itself
+    unless that is a closure around it)."""
+    counter = counter or kernel
+    counter.launches = 0
+    got = kernel(*args)
+    launches = counter.launches
+    want = plain(*args)
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{name} {shape}: {tuple(got.shape)} {got.dtype} vs plain "
+          f"{tuple(want.shape)} {want.dtype}")
+    diff = (got.double() - want.double()).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    if tol is None:
+        check(torch.equal(got, want), f"{name} != plain at {shape}")
+    else:
+        rtol, atol = tol
+        check(bool((diff <= atol + rtol * want.double().abs()).all()),
+              f"{name} outside rtol {rtol} atol {atol} at {shape}: "
+              f"max abs err {err}")
+    check(launches == 1, f"{name} launched {launches} times for one call")
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / ops_per_s * 1e3
+    row = {
+        "shape": shape, "max_abs_err": err,
+        "tolerance": 0 if tol is None else {"rtol": tol[0], "atol": tol[1]},
+        "launches": launches,
+        "ms": cuda_ms(torch, lambda: kernel(*args)),
+        "graph_ms": graph_ms(torch, lambda: kernel(*args)),
+        "plain_ms": cuda_ms(torch, lambda: plain(*args)),
+        "library_ms": cuda_ms(torch, library),
+        "bytes": nbytes, "ops": ops,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+    }
+    emit("kernels", kernel=name, **row)
+    return row
 
 
-def phase_kernels(torch) -> dict:
-    """binary_matmul vs binary_matmul_plain; returns the main-path row."""
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def rows_binary_matmul(torch, rate):
     from repro_torch.kernels.binary_matmul import (binary_matmul,
                                                    binary_matmul_plain)
+    from repro_torch.kernels.ref import pack_bits
     # (B, M, N, Kw): the main path's shape first — 20 tiles of 1024 rows,
     # one 416-bit x per tile packed to 13 words — then the reference test
     # shapes (M, N, K) = (8, 8, 32), (128, 128, 256), (64, 256, 512)
-    shapes = [(20, 1024, 1, 13), (0, 8, 8, 1), (0, 128, 128, 8),
-              (0, 64, 256, 16)]
     rows = []
-    for i, (B, M, N, Kw) in enumerate(shapes):
-        ap, bp, af, bf = binary_matmul_case(torch, B, M, N, Kw, seed=i)
-        binary_matmul.launches = 0
-        got = binary_matmul(ap, bp)
-        want = binary_matmul_plain(ap, bp)
+    for i, (B, M, N, Kw) in enumerate([(20, 1024, 1, 13), (0, 8, 8, 1),
+                                       (0, 128, 128, 8), (0, 64, 256, 16)]):
+        rng = np.random.default_rng(i)
+        lead = (B,) if B else ()
+        af = torch.from_numpy(rng.choice([-1.0, 1.0], size=lead + (
+            M, 32 * Kw)).astype(np.float32)).cuda()
+        bf = torch.from_numpy(rng.choice([-1.0, 1.0], size=lead + (
+            N, 32 * Kw)).astype(np.float32)).cuda()
+        ap, bp = pack_bits(af), pack_bits(bf)
         dense = torch.matmul(af, bf.transpose(-1, -2)).to(torch.int32)
-        torch.cuda.synchronize()
-        err = int((got - want).abs().max())
-        check(err == 0 and torch.equal(got, dense),
-              f"binary_matmul != plain at {(B, M, N, Kw)}")
+        check(torch.equal(binary_matmul(ap, bp), dense),
+              f"binary_matmul != the dense ±1 product at {(B, M, N, Kw)}")
         nb = max(B, 1)
-        nbytes = 4 * (ap.numel() + bp.numel() + got.numel())
-        ops = nb * M * N * (3 * Kw + 1)   # xor, popc, add per word; epilogue
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / SCALAR_OPS_PER_S * 1e3
-        row = {
-            "shape_BMNKw": [B, M, N, Kw], "max_abs_err": err,
-            "tolerance": 0,               # integer popcounts: exact
-            "launches": binary_matmul.launches,   # the compared call: 1
-            "ms": cuda_ms(torch, lambda: binary_matmul(ap, bp)),
-            "graph_ms": graph_ms(torch, lambda: binary_matmul(ap, bp)),
-            "plain_ms": cuda_ms(torch, lambda: binary_matmul_plain(ap, bp)),
-            "library_ms": cuda_ms(
-                torch, lambda: torch.matmul(af, bf.transpose(-1, -2))),
-            "bytes": nbytes, "ops": ops,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        }
-        emit("kernels", kernel="binary_matmul", **row)
-        rows.append(row)
-    main = dict(rows[0])
-    main["max_abs_err"] = max(r["max_abs_err"] for r in rows)
-    return main
+        rows.append(kernel_row(
+            torch, "binary_matmul", [B, M, N, Kw], binary_matmul,
+            binary_matmul_plain,
+            lambda af=af, bf=bf: torch.matmul(af, bf.transpose(-1, -2)),
+            (ap, bp), _nbytes(ap, bp, dense),
+            nb * M * N * (3 * Kw + 1),   # xor, popc, add per word; epilogue
+            rate))
+    return rows
 
 
-def phase_engine() -> None:
-    from repro_torch.core import BinaryMatvecPlan
+def rows_splitk(torch):
+    from repro_torch.kernels.splitk_matvec import (splitk_matvec,
+                                                   splitk_matvec_plain)
+    g = torch.Generator(device="cuda").manual_seed(10)
+    rows = []
+    # the served shape: 27 tiles of MatvecPlan(1024, 39, 8), 8-bit integers
+    # in float32 (the bridge's exact case)
+    a = torch.randint(0, 256, (27, 1024, 39), generator=g,
+                      device="cuda").float()
+    x = torch.randint(0, 256, (27, 39), generator=g, device="cuda").float()
+    cases = [([27, 1024, 39, "f32"], a, x, None)]
+    for M, K, dt in [(256, 512, torch.float32), (512, 1024, torch.bfloat16),
+                     (1024, 4096, torch.bfloat16), (256, 2048, torch.float32)]:
+        bf16 = dt == torch.bfloat16
+        cases.append(([0, M, K, "bf16" if bf16 else "f32"],
+                      torch.randn((M, K), generator=g, device="cuda").to(dt),
+                      torch.randn((K,), generator=g, device="cuda").to(dt),
+                      (2e-2, 0.5) if bf16 else (1e-5, 1e-3)))
+    for shape, a, x, tol in cases:
+        y = a[..., 0].float()
+        lib = ((lambda a=a, x=x: torch.matmul(a, x[..., None]))
+               if a.ndim == 3 else (lambda a=a, x=x: torch.mv(a, x)))
+        rows.append(kernel_row(
+            torch, "splitk_matvec", shape, splitk_matvec,
+            splitk_matvec_plain, lib, (a, x),
+            _nbytes(a, x, y), 2 * a.numel(), F32_FLOPS_PER_S, tol))
+    return rows
+
+
+def _grouped_conv(torch, a, k):
+    """The library yardstick: F.conv2d over B images as B groups."""
+    import torch.nn.functional as F
+    a4 = a.reshape((1, -1) + tuple(a.shape[-2:]))
+    B = a4.shape[1]
+    k4 = (k if k.ndim == 3 else k[None].expand(B, -1, -1)).reshape(
+        (B, 1) + tuple(k.shape[-2:])).to(a.dtype)
+    return lambda: F.conv2d(a4, k4, groups=B)
+
+
+def rows_conv(torch):
+    from repro_torch.kernels.conv2d_shift import (conv2d_shift,
+                                                  conv2d_shift_plain)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    # the served shape: 126 tiles of ConvPlan(64, 8, 3, 8), one kernel each
+    a = torch.randint(0, 256, (126, 64, 8), generator=g,
+                      device="cuda").float()
+    k = torch.randint(0, 256, (126, 3, 3), generator=g,
+                      device="cuda").float()
+    cases = [([126, 64, 8, 3, "f32"], a, k, None)]
+    for H, W, kk, dt in [(32, 32, 3, torch.float32), (64, 48, 5,
+                                                      torch.float32),
+                         (33, 31, 3, torch.bfloat16),
+                         (128, 128, 3, torch.bfloat16)]:
+        bf16 = dt == torch.bfloat16
+        cases.append(([0, H, W, kk, "bf16" if bf16 else "f32"],
+                      torch.randn((H, W), generator=g, device="cuda").to(dt),
+                      torch.randn((kk, kk), generator=g,
+                                  device="cuda").to(dt),
+                      (3e-2, 0.5) if bf16 else (1e-5, 1e-5)))
+    rows = []
+    for shape, a, k, tol in cases:
+        kh, kw = k.shape[-2:]
+        out = conv2d_shift_plain(a, k)
+        rows.append(kernel_row(
+            torch, "conv2d_shift", shape, conv2d_shift, conv2d_shift_plain,
+            _grouped_conv(torch, a, k), (a, k), _nbytes(a, k, out),
+            2 * out.numel() * kh * kw, F32_FLOPS_PER_S, tol))
+    return rows
+
+
+def rows_tiled(torch):
+    from repro_torch.kernels.conv2d_shift import (conv2d_shift_tiled,
+                                                  conv2d_shift_tiled_plain)
+    g = torch.Generator(device="cuda").manual_seed(12)
+    # the ops path's shape: a 1026×1026 image, 3×3 taps, the default
+    # 128×128 output tiles (a 67.6 KB halo tile: the shared-memory opt-in)
+    cases = [([1026, 1026, 3, 128, 128],
+              torch.randint(0, 16, (1026, 1026), generator=g,
+                            device="cuda").float(),
+              torch.randint(0, 16, (3, 3), generator=g,
+                            device="cuda").float(), None)]
+    for H, W, k, bh, bw in [(66, 66, 3, 32, 32), (131, 67, 4, 64, 32)]:
+        cases.append(([H, W, k, bh, bw],
+                      torch.randn((H, W), generator=g, device="cuda"),
+                      torch.randn((k, k), generator=g, device="cuda"),
+                      (1e-5, 1e-5)))
+    rows = []
+    for shape, a, k, tol in cases:
+        bh, bw = shape[3], shape[4]
+        kh, kw = k.shape
+        out = conv2d_shift_tiled_plain(a, k, bh, bw)
+        rows.append(kernel_row(
+            torch, "conv2d_shift_tiled", shape,
+            lambda a, k, bh=bh, bw=bw: conv2d_shift_tiled(a, k, bh, bw),
+            lambda a, k, bh=bh, bw=bw: conv2d_shift_tiled_plain(a, k, bh,
+                                                                bw),
+            _grouped_conv(torch, a, k), (a, k), _nbytes(a, k, out),
+            2 * out.numel() * kh * kw, F32_FLOPS_PER_S, tol,
+            counter=conv2d_shift_tiled))
+    return rows
+
+
+def rows_binary_conv(torch, rate):
+    import torch.nn.functional as F
+    from repro_torch.kernels.conv2d_shift import (binary_conv2d,
+                                                  binary_conv2d_plain)
+    from repro_torch.kernels.ref import pack_bits
+    rows = []
+    # (H, W, C, k): the ops path's shape first, then the reference's
+    for i, (H, W, C, k) in enumerate([(66, 66, 256, 3), (16, 16, 32, 3),
+                                      (32, 24, 64, 3), (20, 20, 128, 5)]):
+        rng = np.random.default_rng(20 + i)
+        af = torch.from_numpy(rng.choice([-1.0, 1.0], size=(H, W, C)).astype(
+            np.float32)).cuda()
+        kf = torch.from_numpy(rng.choice([-1.0, 1.0], size=(k, k, C)).astype(
+            np.float32)).cuda()
+        ap, kp = pack_bits(af), pack_bits(kf)
+        a4 = af.permute(2, 0, 1)[None].contiguous()
+        k4 = kf.permute(2, 0, 1)[None].contiguous()
+        dense = F.conv2d(a4, k4)[0, 0].round().to(torch.int32)
+        check(torch.equal(binary_conv2d(ap, kp), dense),
+              f"binary_conv2d != the dense ±1 conv at {(H, W, C, k)}")
+        n_out = (H - k + 1) * (W - k + 1)
+        rows.append(kernel_row(
+            torch, "binary_conv2d", [H, W, C, k], binary_conv2d,
+            binary_conv2d_plain, lambda a4=a4, k4=k4: F.conv2d(a4, k4),
+            (ap, kp), _nbytes(ap, kp, dense),
+            n_out * (k * k * (C // 32) * 3 + 1), rate))
+    return rows
+
+
+def phase_kernels(torch, rate) -> dict:
+    """Every kernel against its plain version; returns each kernel's rows
+    (the main-path row first)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return {"binary_matmul": rows_binary_matmul(torch, rate),
+            "splitk_matvec": rows_splitk(torch),
+            "conv2d_shift": rows_conv(torch),
+            "conv2d_shift_tiled": rows_tiled(torch),
+            "binary_conv2d": rows_binary_conv(torch, rate)}
+
+
+def correlate(img, K, N):
+    """Valid correlation mod 2^N in int64 (the numpy oracle)."""
+    k = K.shape[-1]
+    oh, ow = img.shape[-2] - k + 1, img.shape[-1] - k + 1
+    out = np.zeros(img.shape[:-2] + (oh, ow), dtype=np.int64)
+    for v in range(k):
+        for h in range(k):
+            out += img[..., v:v + oh, h:h + ow] * K[..., v, h, None, None]
+    return out % (1 << N)
+
+
+def engine_case(plan, name, cycles, Bs, make, decode, oracle):
+    """Run ``plan`` over each batch size on the three device backends; all
+    decode identically and equal ``oracle``."""
     t0 = time.perf_counter()
-    plan = BinaryMatvecPlan(1024, 416)
     cp = plan.compile()
     compile_s = time.perf_counter() - t0
-    check(cp.n_cycles == 565, f"tile program has {cp.n_cycles} cycles")
-    rng = np.random.default_rng(1)
-    for B in (1, 20, 33):
-        A = rng.choice([-1, 1], size=(B, 1024, 416))
-        x = rng.choice([-1, 1], size=(B, 416))
-        mems = np.zeros((B, 1024, 1024), np.uint8)
+    check(cp.n_cycles == cycles, f"{name} has {cp.n_cycles} cycles, not "
+          f"{cycles}")
+    for B in Bs:
+        operands = make(B)
+        mems = np.zeros((B, plan.rows, plan.cols), np.uint8)
         for b in range(B):
-            plan.load_into(mems[b], A[b], x[b])
-        walls = {}
-        decoded = {}
+            plan.load_into(mems[b], *(o[b] for o in operands))
+        walls, decoded = {}, {}
         for backend in ("torch-fused", "torch-unfused", "kernels"):
             for run in ("first", "warm"):
                 t0 = time.perf_counter()
                 res = plan.execute_batch(mems, backend=backend,
                                          device="cuda")
                 walls[f"{backend}:{run}"] = (time.perf_counter() - t0) * 1e3
-            check(res.backend == backend and res.cycles == 565,
-                  f"{backend}: label {res.backend}, {res.cycles} cycles")
-            decoded[backend] = (
-                np.stack([plan.decode_y(m) for m in res.mem]),
-                np.stack([plan.decode_popcount(m) for m in res.mem]))
-        dots = np.einsum("bmk,bk->bm", A, x)
-        for backend, (y, pop) in decoded.items():
-            check(np.array_equal(y, np.where(dots >= 0, 1, -1)),
-                  f"{backend} y != sign(A @ x) at B={B}")
-            check(np.array_equal(pop, (dots + 416) // 2),
-                  f"{backend} popcount != (A @ x + n) / 2 at B={B}")
-        emit("engine", plan="BinaryMatvecPlan(1024, 416)", B=B, cycles=565,
-             compile_s=compile_s, wall_ms=walls)
+            check(res.backend == backend and res.cycles == cycles,
+                  f"{name} {backend}: label {res.backend}, {res.cycles} "
+                  f"cycles")
+            decoded[backend] = [decode(m) for m in res.mem]
+        want = oracle(*operands)
+        for backend, outs in decoded.items():
+            for b, out in enumerate(outs):
+                check(all(np.array_equal(np.asarray(o, dtype=np.int64), w)
+                          for o, w in zip(out, want[b])),
+                      f"{name} {backend} != the oracle at B={B}, "
+                      f"instance {b}")
+        emit("engine", plan=name, B=B, cycles=cycles, compile_s=compile_s,
+             wall_ms=walls)
+
+
+def phase_engine() -> None:
+    from repro_torch.core import BinaryMatvecPlan, ConvPlan, MatvecPlan
+    rng = np.random.default_rng(1)
+
+    bplan = BinaryMatvecPlan(1024, 416)
+    engine_case(
+        bplan, "BinaryMatvecPlan(1024, 416)", 565, (1, 20, 33),
+        lambda B: (rng.choice([-1, 1], size=(B, 1024, 416)),
+                   rng.choice([-1, 1], size=(B, 416))),
+        lambda m: (bplan.decode_y(m), bplan.decode_popcount(m)),
+        lambda A, x: [(np.where(d >= 0, 1, -1), (d + 416) // 2)
+                      for d in np.einsum("bmk,bk->bm", A, x)])
+
+    mplan = MatvecPlan(1024, 39, 8)
+    engine_case(
+        mplan, "MatvecPlan(1024, 39, 8)", 9474, (1, 27),
+        lambda B: (rng.integers(0, 256, size=(B, 1024, 39)),
+                   rng.integers(0, 256, size=(B, 39))),
+        lambda m: (mplan.decode_y(m),),
+        lambda A, x: [(d % (1 << 16),)
+                      for d in np.einsum("bmk,bk->bm", A, x)])
+
+    cplan = ConvPlan(64, 8, 3, 8)
+    cplan.ensure_program(np.ones((3, 3), np.int64))   # kstore: K-free
+    engine_case(
+        cplan, "ConvPlan(64, 8, 3, 8)", 9800, (1, 63),
+        lambda B: (rng.integers(0, 256, size=(B, 64, 8)),
+                   rng.integers(0, 256, size=(B, 3, 3))),
+        lambda m: (cplan.decode_out(m),),
+        lambda A, K: [(o,) for o in correlate(A, K, 8)])
+
+
+# request name -> (kind, operands, tiles, cycles, reduce depth)
+def serve_requests(rng):
+    K1 = rng.integers(0, 256, size=(3, 3))
+    K2 = rng.integers(0, 256, size=(3, 3))
+    lap = np.array([[0, 1, 0], [1, -4, 1], [0, 1, 0]])
+    pm = [-1, 1]
+    return {
+        "bmv 4096x2048": ("binary_matvec", (rng.choice(pm, (4096, 2048)),
+                                            rng.choice(pm, 2048)), 20, 565,
+                          3),
+        "bmv 1024x384": ("binary_matvec", (rng.choice(pm, (1024, 384)),
+                                           rng.choice(pm, 384)), 2, 565, 1),
+        "bmv 300x500": ("binary_matvec", (rng.choice(pm, (300, 500)),
+                                          rng.choice(pm, 500)), 2, None, 1),
+        "mv 1024x1024 N8": ("matvec", (rng.integers(0, 256, (1024, 1024)),
+                                       rng.integers(0, 256, 1024), 8),
+                            27, 9474, 5),
+        "mv 300x500 N8": ("matvec", (rng.integers(0, 256, (300, 500)),
+                                     rng.integers(0, 256, 500), 8),
+                          14, 9442, 4),
+        "mv 256x256 N16": ("matvec", (rng.integers(0, 1 << 16, (256, 256)),
+                                      rng.integers(0, 1 << 16, 256), 16),
+                           15, 8732, 4),
+        "conv 128x128 K1": ("conv", (rng.integers(0, 256, (128, 128)), K1,
+                                     8), 63, 9800, 0),
+        "conv 128x128 K2": ("conv", (rng.integers(0, 256, (128, 128)), K2,
+                                     8), 63, 9800, 0),
+        "conv 100x60 lap": ("conv", (rng.integers(0, 256, (100, 60)), lap,
+                                     8), 33, 9800, 0),
+    }
+
+
+def oracle(kind, args):
+    if kind == "binary_matvec":
+        A, x = args
+        return np.where(A @ x >= 0, 1, -1)
+    if kind == "matvec":
+        A, x, N = args
+        return (A.astype(object) @ x.astype(object)) % (1 << (2 * N))
+    img, K, N = args
+    return correlate(img, K, N)
 
 
 def serve_round(svc, reqs):
     from repro_torch.obs import trace
     tr = trace.enable()
     t0 = time.perf_counter()
-    tickets = [svc.submit_binary_matvec(A, x) for A, x in reqs]
+    tickets = {name: svc.submit(kind, *args)
+               for name, (kind, args, *_) in reqs.items()}
     svc.flush()
     wall = time.perf_counter() - t0
     trace.disable()
     spans = {}
     for ev in tr.events():
         spans[ev["name"]] = spans.get(ev["name"], 0.0) + ev["dur"] / 1e3
-    for t, (A, x) in zip(tickets, reqs):
-        check(t.done and np.array_equal(t.result,
-                                        np.where(A @ x >= 0, 1, -1)),
-              f"ticket {t.uid} {A.shape} != sign(A @ x)")
+    for name, (kind, args, *_) in reqs.items():
+        t = tickets[name]
+        check(t.done and np.array_equal(
+            np.asarray(t.result, dtype=np.int64),
+            np.asarray(oracle(kind, args), dtype=np.int64)),
+            f"ticket {name} != its oracle")
     return tickets, wall, spans
 
 
-def phase_serve(torch) -> int:
-    """The main path; returns binary_matmul launches of the kernels run."""
-    from repro_torch.kernels.binary_matmul import binary_matmul
+COUNTED = ("binary_matmul", "splitk_matvec", "conv2d_shift",
+           "conv2d_shift_tiled", "binary_conv2d")
+
+
+def launch_counters():
+    from repro_torch.kernels import binary_matmul, conv2d_shift, splitk_matvec
+    return {"binary_matmul": binary_matmul.binary_matmul,
+            "splitk_matvec": splitk_matvec.splitk_matvec,
+            "conv2d_shift": conv2d_shift.conv2d_shift,
+            "conv2d_shift_tiled": conv2d_shift.conv2d_shift_tiled,
+            "binary_conv2d": conv2d_shift.binary_conv2d}
+
+
+def phase_serve() -> dict:
+    """The slice's path; returns each kernel's launches in the kernels
+    service's cold round."""
     from repro_torch.serve import PlanService
-    rng = np.random.default_rng(2)
-
-    def requests():
-        return [(rng.choice([-1, 1], size=(m, k)), rng.choice([-1, 1],
-                                                              size=k))
-                for m, k in ((4096, 2048), (1024, 384), (300, 500))]
-
+    counters = launch_counters()
     launches = None
-    results = {}
     for backend in ("kernels", "torch"):
+        rng = np.random.default_rng(2)
+        reqs = serve_requests(rng)
         svc = PlanService(backend=backend, device="cuda")
-        reqs = requests()
         if backend == "kernels":
-            binary_matmul.launches = 0
+            for fn in counters.values():
+                fn.launches = 0
         tickets, wall, spans = serve_round(svc, reqs)
         if backend == "kernels":
-            launches = binary_matmul.launches
-            check(launches > 0, "the kernels service launched no kernel")
-        big = tickets[0]
-        check(big.n_units == 20 and big.cycles == 565
-              and big.reduce_depth == 3,
-              f"4096x2048: {big.n_units} tiles, {big.cycles} cycles, "
-              f"depth {big.reduce_depth}")
-        check(all(t.backend == backend for t in tickets),
-              f"{backend} service labels {[t.backend for t in tickets]}")
-        # a warm round: plans cached, replay tables and library loaded
-        warm, warm_wall, warm_spans = serve_round(svc, requests())
-        results[backend] = [t.result for t in tickets]
-        emit("serve", backend=backend, launches=(
-            launches if backend == "kernels" else None),
+            launches = {n: fn.launches for n, fn in counters.items()}
+            for n in ("binary_matmul", "splitk_matvec", "conv2d_shift"):
+                check(launches[n] > 0, f"the kernels service launched no "
+                      f"{n}")
+        for name, (kind, args, tiles, cycles, depth) in reqs.items():
+            t = tickets[name]
+            check(t.n_units == tiles and t.reduce_depth == depth
+                  and (cycles is None or t.cycles == cycles),
+                  f"{name}: {t.n_units} tiles, {t.cycles} cycles, depth "
+                  f"{t.reduce_depth}")
+            fallback = backend == "kernels" and name == "mv 256x256 N16"
+            label = "kernels:fallback-torch" if fallback else backend
+            check(t.backend == label, f"{name} labelled {t.backend}, not "
+                  f"{label}")
+        k1, k2 = tickets["conv 128x128 K1"], tickets["conv 128x128 K2"]
+        check(k1.key == k2.key and k1.batch_units == 126,
+              "distinct-kernel convs did not share one plan and batch")
+        # a warm round: plans cached, replay tables and libraries loaded
+        warm, warm_wall, warm_spans = serve_round(
+            svc, serve_requests(np.random.default_rng(3)))
+        emit("serve", backend=backend,
+             launches=launches if backend == "kernels" else None,
              stats=svc.stats.as_dict(),
-             cold={"wall_s": wall, "spans_ms": spans, "requests": [
-                 {"shape": list(A.shape), "tiles": t.n_units,
-                  "cycles": t.cycles, "reduce_depth": t.reduce_depth,
-                  "wall_s": t.wall_s, "batch_wall_s": t.batch_wall_s}
-                 for t, (A, _) in zip(tickets, reqs)]},
+             cold={"wall_s": wall, "spans_ms": spans, "requests": {
+                 name: {"tiles": t.n_units, "cycles": t.cycles,
+                        "reduce_depth": t.reduce_depth, "label": t.backend,
+                        "wall_s": t.wall_s, "batch_wall_s": t.batch_wall_s,
+                        "batch_units": t.batch_units}
+                 for name, t in tickets.items()}},
              warm={"wall_s": warm_wall, "spans_ms": warm_spans,
-                   "requests": [{"wall_s": t.wall_s,
-                                 "batch_wall_s": t.batch_wall_s}
-                                for t in warm]})
+                   "requests": {name: {"wall_s": t.wall_s,
+                                       "batch_wall_s": t.batch_wall_s}
+                                for name, t in warm.items()}})
     return launches
 
 
-def nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip()
-    check(bool(out), "nvidia-smi printed nothing")
-    return out
+def phase_ops(torch) -> dict:
+    """``kernels.ops`` on CUDA tensors: each equals its plain version and
+    launches its kernel; returns the launches of this run."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.binary_matmul import binary_matmul_plain
+    from repro_torch.kernels.conv2d_shift import (binary_conv2d_plain,
+                                                  conv2d_shift_plain)
+    from repro_torch.kernels.splitk_matvec import splitk_matvec_plain
+    g = torch.Generator(device="cuda").manual_seed(30)
+    # integer-valued operands under 2^24: every sum exact in any order
+    a = torch.randint(0, 16, (1024, 1024), generator=g, device="cuda").float()
+    x = torch.randint(0, 16, (1024,), generator=g, device="cuda").float()
+    img = torch.randint(0, 16, (1026, 1026), generator=g,
+                        device="cuda").float()
+    k = torch.randint(0, 16, (3, 3), generator=g, device="cuda").float()
+    pm = torch.tensor([-1.0, 1.0], device="cuda")
+    ab = pm[torch.randint(0, 2, (66, 66, 256), generator=g, device="cuda")]
+    kb = pm[torch.randint(0, 2, (3, 3, 256), generator=g, device="cuda")]
+    xs = torch.randn((64, 1024), generator=g, device="cuda")
+    w = pm[torch.randint(0, 2, (1024, 1024), generator=g, device="cuda")]
+    ap, kp, wp = ops.pack_bits(ab), ops.pack_bits(kb), ops.pack_bits(w)
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    got = {"matvec": ops.matvec(a, x), "conv2d": ops.conv2d(img, k),
+           "conv2d_tiled": ops.conv2d(img, k, tiled=True),
+           "conv2d_binary": ops.conv2d_binary(ap, kp),
+           "binary_dense": ops.binary_dense(xs, wp, 1024)}
+    torch.cuda.synchronize()
+    launches = {n: fn.launches for n, fn in counters.items()}
+    want = {"matvec": splitk_matvec_plain(a, x),
+            "conv2d": conv2d_shift_plain(img, k),
+            "conv2d_tiled": conv2d_shift_plain(img, k),
+            "conv2d_binary": binary_conv2d_plain(ap, kp),
+            "binary_dense": binary_matmul_plain(ops.pack_bits(xs), wp)}
+    for name in got:
+        check(got[name].is_cuda and torch.equal(got[name], want[name]),
+              f"ops.{name} != its plain version")
+    check(all(v == 1 for v in launches.values()),
+          f"ops launches {launches}, not one each")
+    emit("ops", launches=launches,
+         shapes={n: list(t.shape) for n, t in got.items()})
+    return launches
+
+
+SOURCES = {
+    "binary_matmul": ("src/repro_torch/csrc/binary_matmul.cu",
+                      "src/repro/kernels/binary_matmul.py:63"),
+    "splitk_matvec": ("src/repro_torch/csrc/splitk_matvec.cu",
+                      "src/repro/kernels/splitk_matvec.py:38"),
+    "conv2d_shift": ("src/repro_torch/csrc/conv2d_shift.cu",
+                     "src/repro/kernels/conv2d_shift.py:36"),
+    "conv2d_shift_tiled": ("src/repro_torch/csrc/conv2d_shift.cu",
+                           "src/repro/kernels/conv2d_shift.py:63"),
+    "binary_conv2d": ("src/repro_torch/csrc/conv2d_shift.cu",
+                      "src/repro/kernels/conv2d_shift.py:100"),
+}
 
 
 def main() -> int:
@@ -295,25 +656,35 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
-    smi = nvidia_smi()
+    name_limit = smi("name,power.limit")
+    t0 = time.perf_counter()
     phase_build()
-    main_row = phase_kernels(torch)
+    rate = int32_rate(torch)
+    rows = phase_kernels(torch, rate)
     phase_engine()
-    launches = phase_serve(torch)
-    summary = {"kernels": [{
-        "name": "binary_matmul", "route": "cuda",
-        "source": "src/repro_torch/csrc/binary_matmul.cu",
-        "replaces": "src/repro/kernels/binary_matmul.py:63",
-        "launches": launches, "max_abs_err": main_row["max_abs_err"],
-        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"]}]}
+    launches = phase_serve()
+    launches.update({n: v for n, v in phase_ops(torch).items()
+                     if n in ("conv2d_shift_tiled", "binary_conv2d")})
+    summary = {"kernels": []}
+    for name in COUNTED:
+        main_row = rows[name][0]
+        source, replaces = SOURCES[name]
+        summary["kernels"].append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": main_row["max_abs_err"], "ms": main_row["ms"],
+            "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"],
+            "library_ms": main_row["library_ms"]})
+    emit("done", seconds=time.perf_counter() - t0)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
-            {"nvidia_smi": smi, "records": RECORDS, **summary}, indent=1))
+            {"nvidia_smi": name_limit, "records": RECORDS, **summary},
+            indent=1))
     print(json.dumps(summary), flush=True)
-    print(smi, flush=True)
+    print(name_limit, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

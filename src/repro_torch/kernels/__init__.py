@@ -1,8 +1,23 @@
 """Hand-written Hopper kernels of the port, and how they are built.
 
-    binary_matmul   — XNOR-popcount GEMM (MatPIM §II-B), CUDA C++ for
-                      sm_90a, in place of the Pallas kernel of
-                      ``src/repro/kernels/binary_matmul.py``
+Each is CUDA C++ for sm_90a in place of a Pallas kernel of
+``src/repro/kernels/``:
+
+    binary_matmul       — XNOR-popcount GEMM (MatPIM §II-B)
+                          (``binary_matmul.py``, ``csrc/binary_matmul.cu``)
+    splitk_matvec       — f32-accumulate GEMV (MatPIM §II-A block/reduce)
+                          (``splitk_matvec.py``, ``csrc/splitk_matvec.cu``)
+    conv2d_shift        — shift-and-add conv, whole image (MatPIM §III-A)
+    conv2d_shift_tiled  — the same, output tiled with halo input tiles
+    binary_conv2d       — channel-packed XNOR conv (MatPIM §III-C)
+                          (all three ``conv2d_shift.py``,
+                          ``csrc/conv2d_shift.cu``)
+
+``ops.py`` holds the public wrappers (``matvec``, ``conv2d``,
+``conv2d_binary``, ``binary_dense``, ``as_packed_words``); ``ref.py`` the
+plain oracles. Both are exported here. Each kernel function lives in the
+module of its own name (``kernels.splitk_matvec.splitk_matvec``) and is not
+re-exported, so ``repro_torch.kernels.<name>`` stays the module.
 
 Each kernel's CUDA source lives in ``src/repro_torch/csrc/``. At first use
 :func:`load_library` compiles it with ``nvcc`` into a shared library with a
@@ -73,3 +88,10 @@ def load_library(source: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<source>``; one handle per process."""
     build(source)
     return ctypes.CDLL(str(library_path(source)))
+
+
+# after load_library: ops and ref import the kernel modules, which import it
+from . import ops, ref  # noqa: E402
+
+__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build", "library_path",
+           "load_library", "ops", "ref"]

@@ -1,6 +1,6 @@
-"""Plain PyTorch oracles for the port's kernels (the binary parts of
-``src/repro/kernels/ref.py``). Words are int32 holding the reference's
-uint32 bits.
+"""Plain PyTorch oracles for the port's kernels (the port of
+``src/repro/kernels/ref.py``; the crossbar-engine oracles stay with the
+reference's tests). Words are int32 holding the reference's uint32 bits.
 """
 from __future__ import annotations
 
@@ -41,3 +41,39 @@ def binary_matmul_packed_ref(a_packed: torch.Tensor, b_packed: torch.Tensor,
     x = a_packed[:, None, :] ^ b_packed[None, :, :]
     match = K - popcount32(x).sum(-1)
     return (2 * match - K).to(torch.int32)    # ⟨a,b⟩ = matches − mismatches
+
+
+def splitk_matvec_ref(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x with f32 accumulation (A may be bf16)."""
+    return torch.matmul(a.to(torch.float32), x.to(torch.float32))
+
+
+def conv2d_shift_ref(a: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Valid 2D convolution (no flip — cross-correlation, as MatPIM Alg. 1).
+
+    a: (H, W), k: (kh, kw). f32 accumulation.
+    """
+    H, W = a.shape
+    kh, kw = k.shape
+    out = torch.zeros((H - kh + 1, W - kw + 1), dtype=torch.float32,
+                      device=a.device)
+    for v in range(kh):
+        for h in range(kw):
+            out = out + a[v:H - kh + 1 + v, h:W - kw + 1 + h].to(
+                torch.float32) * k[v, h].to(torch.float32)
+    return out
+
+
+def binary_conv2d_ref(a: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Channel-packed binary conv: a (H, W, C/32) int32 words, k (kh, kw,
+    C/32) int32 words, output int32 ±1 dot over (kh, kw, C)."""
+    H, W, Cw = a.shape
+    kh, kw, _ = k.shape
+    C = Cw * 32
+    out = torch.zeros((H - kh + 1, W - kw + 1), dtype=torch.int64,
+                      device=a.device)
+    for v in range(kh):
+        for h in range(kw):
+            x = a[v:H - kh + 1 + v, h:W - kw + 1 + h, :] ^ k[v, h, :]
+            out = out + (C - 2 * popcount32(x).sum(-1))
+    return out.to(torch.int32)

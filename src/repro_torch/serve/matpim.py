@@ -1,16 +1,20 @@
-"""Plan-cache serving layer on a torch device: the binary-matvec path of
+"""Plan-cache serving layer on a torch device: the port of
 ``src/repro/serve/matpim.py``.
 
 :class:`PlanService` caches compiled+fused plans in a bounded LRU keyed by
 ``(algorithm, bucket shape, geometry, fuse, backend)`` with hit / miss /
 eviction stats; evicted plans drop their executor memoizations
 (``CompiledProgram.clear_caches()``), releasing their device tables. A
-stream of ±1 matvec requests is **bucketed** by plan key: request shapes
-round up to power-of-two buckets, operands are padded with the binary
-identity (+1), and every bucket coalesces onto the batch axis of one
-``execute_batch`` call on the service's device — one kernel launch for all
-the bucket's tiles on the ``kernels`` backend. Results scatter back per
-request, popcounts re-thresholded at the true operand length.
+stream of heterogeneous requests — ±1 matvec, full-precision matvec and
+full-precision conv — is **bucketed** by plan key: request shapes round up
+to power-of-two buckets, operands are padded with each algorithm's identity
+(+1 for binary, zeros for full precision), and every bucket coalesces onto
+the batch axis of one ``execute_batch`` call on the service's device — one
+kernel launch for all the bucket's tiles on the ``kernels`` backend. Results
+scatter back per request (popcounts re-thresholded at the true operand
+length, conv maps cropped to the true valid region). Conv programs that do
+not depend on the kernel serve every kernel of their shape from one plan,
+so requests with distinct kernels share a batch.
 
 Two driving modes: the synchronous ``submit_* / flush`` API runs
 everything pending, and :meth:`PlanService.run_stream` is a host-side
@@ -21,9 +25,10 @@ with per-request cycles and wall-time metrics on every :class:`Ticket`.
 Not ported yet (each raises; ROADMAP Queue 1 lists them): the async compile
 pool (``async_compile=True``), the persistent plan store (any ``store``
 other than ``None``/``False``; the port has no ``$MATPIM_PLAN_STORE``
-default), multi-device dispatch (``devices > 1``), the matvec and conv
-submissions, and ``FaultModel`` requests. ``FaultRealization`` requests
-coalesce by concatenating their masks along the batch axis.
+default), multi-device dispatch (``devices > 1``), the binary conv
+submission (``submit_binary_conv``), and ``FaultModel`` requests.
+``FaultRealization`` requests coalesce by concatenating their masks along
+the batch axis.
 
 >>> import numpy as np
 >>> svc = PlanService(rows=64, cols=256, parts=8, device="cpu")
@@ -48,7 +53,8 @@ import numpy as np
 
 from ..core.compile import RunnerCache
 from ..core.engine import parse_backend, resolve_device
-from ..core.tiling import TiledBinaryMatvec, majority_sign
+from ..core.tiling import (TiledBinaryMatvec, TiledConv2d, TiledMatvec,
+                           majority_sign)
 from ..device.faults import FaultModel, FaultRealization
 from ..obs import metrics as _metrics
 from ..obs.trace import span as _span
@@ -271,18 +277,30 @@ class PlanService:
         """Dispatch to ``submit_<kind>`` (the :class:`ServeRequest` path)."""
         return getattr(self, f"submit_{kind}")(*args, **kw)
 
-    def submit_binary_matvec(self, A: np.ndarray, x: np.ndarray,
-                             faults=None) -> Ticket:
-        """±1 matvec ``y = sign(A @ x)``; result is the (m,) sign vector."""
+    @staticmethod
+    def _reject_fault_model(faults) -> None:
         if isinstance(faults, FaultModel):
             raise NotImplementedError(
                 "FaultModel sampling is not ported to repro_torch yet "
                 "(ROADMAP Queue 1, item 10); pass a FaultRealization")
+
+    @classmethod
+    def _operands(cls, A, x, faults) -> Tuple[np.ndarray, np.ndarray]:
+        """Matvec operands as arrays, shapes checked; FaultModel requests
+        raise."""
+        cls._reject_fault_model(faults)
         A = np.asarray(A)
         x = np.asarray(x)
+        if A.ndim != 2 or x.shape != (A.shape[1],):
+            raise ValueError(f"A shape {A.shape} and x shape {x.shape} do "
+                             f"not form a matvec")
+        return A, x
+
+    def submit_binary_matvec(self, A: np.ndarray, x: np.ndarray,
+                             faults=None) -> Ticket:
+        """±1 matvec ``y = sign(A @ x)``; result is the (m,) sign vector."""
+        A, x = self._operands(A, x, faults)
         m, k = A.shape
-        if x.shape != (k,):
-            raise ValueError(f"x shape {x.shape} != ({k},)")
         Mb, Kb = self._bucket2(m, k)
         rows, cols, parts = self.geometry
         key = ("binary_matvec", (Mb, Kb), self.geometry, self.fuse,
@@ -304,6 +322,91 @@ class PlanService:
 
         return self._enqueue(self._ticket("binary_matvec", key, w.n_tiles),
                              w, load, decode, finalize, faults)
+
+    def submit_matvec(self, A: np.ndarray, x: np.ndarray, N: int,
+                      faults=None) -> Ticket:
+        """Full-precision ``y = A @ x mod 2^(2N)`` (N-bit operands)."""
+        A, x = self._operands(A, x, faults)
+        m, k = A.shape
+        Mb, Kb = self._bucket2(m, k)
+        rows, cols, parts = self.geometry
+        key = ("matvec", (Mb, Kb), int(N), self.geometry, self.fuse,
+               self.backend)
+        w = self._get_plan(key, lambda: TiledMatvec(
+            Mb, Kb, N, rows=rows, cols=cols, parts=parts))
+        Ap = np.zeros((Mb, Kb), dtype=np.int64)   # zero-pad: adds 0 mod 2^2N
+        Ap[:m, :k] = A
+        xp = np.zeros(Kb, dtype=np.int64)
+        xp[:k] = x
+        load, decode, fin = w.bind(Ap, xp)
+
+        def finalize(partials):
+            y, depth = fin(partials)
+            return y[:m], depth
+
+        return self._enqueue(self._ticket("matvec", key, w.n_tiles),
+                             w, load, decode, finalize, faults)
+
+    def _submit_conv(self, img: np.ndarray, K: np.ndarray, N: int,
+                     faults) -> Ticket:
+        self._reject_fault_model(faults)
+        img = np.asarray(img)
+        K = np.asarray(K, dtype=np.int64)
+        H, Wd = img.shape
+        k = K.shape[0]
+        if K.shape != (k, k):
+            raise ValueError(f"kernel shape {K.shape} is not square")
+        if H < k or Wd < k:
+            raise ValueError(f"image {img.shape} smaller than the kernel")
+        Hb, Wb = self._bucket2(H, Wd)
+        Hb, Wb = max(Hb, k), max(Wb, k)
+        rows, cols, parts = self.geometry
+        # the kernel joins the cache key only when the lowered program
+        # depends on it (the full-precision plan specializes only in the
+        # stream-kernel fallback). Kernel-independent plans serve EVERY
+        # kernel of the shape: requests with distinct kernels share one
+        # compiled plan and coalesce into one batch (each tile loads its
+        # own kernel as data). The probe constructor is cheap — programs
+        # build lazily below.
+        probe = TiledConv2d(Hb, Wb, k, N, rows=rows, cols=cols, parts=parts)
+        kernel_dep = probe.plan.specialize or probe.plan.stream_kernel
+        key = ("conv", (Hb, Wb), k, int(N),
+               K.tobytes() if kernel_dep else None, self.geometry,
+               self.fuse, self.backend)
+
+        def factory():
+            probe.plan.ensure_program(K)   # program build lands in compile_s
+            return probe
+
+        w = self._get_plan(key, factory)
+        # zero-pad bottom/right; the true valid region [0:H-k+1, 0:W-k+1]
+        # only reads real pixels, so cropping it back is exact
+        imgp = np.zeros((Hb, Wb), dtype=np.int64)
+        imgp[:H, :Wd] = img
+        load, decode, fin = w.bind(imgp, K)
+        oh, ow = H - k + 1, Wd - k + 1
+
+        def finalize(tiles):
+            out, depth = fin(tiles)
+            return out[:oh, :ow], depth
+
+        return self._enqueue(self._ticket("conv", key, w.n_tiles),
+                             w, load, decode, finalize, faults)
+
+    def submit_conv(self, img: np.ndarray, K: np.ndarray, N: int,
+                    faults=None) -> Ticket:
+        """Full-precision valid 2D correlation mod 2^N (negative taps ride
+        two's-complement encoding). Result is the (H-k+1, W-k+1) raw
+        map."""
+        return self._submit_conv(img, K, N, faults)
+
+    def submit_binary_conv(self, img: np.ndarray, K: np.ndarray,
+                           faults=None) -> Ticket:
+        """The reference's ±1-kernel binary conv (§III-C); raises until
+        ``BinaryConvPlan`` is ported (ROADMAP Queue 1, item 8)."""
+        raise NotImplementedError(
+            "submit_binary_conv needs BinaryConvPlan, not ported to "
+            "repro_torch yet (ROADMAP Queue 1, item 8)")
 
     # -- execution -----------------------------------------------------------
 
