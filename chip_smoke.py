@@ -13,10 +13,14 @@ each printing one JSON line per record:
 2. kernels — every kernel against its plain PyTorch version on the card, at
              the main path's shape (integer-valued inputs: exact, tolerance
              0) and at the reference's test shapes (float inputs, the
-             reference's tolerances); the compared call's launch count; kernel,
-             plain and library times from CUDA events — per call, and for
-             the kernel also per launch replayed from a CUDA graph, without
-             the host — and the bound from bytes (3.35 TB/s) and operations
+             reference's tolerances), and for the float convs at shapes that
+             stress the redesigned tiling (1000 small images, a 514×514
+             image with 256×256 reference tiles, odd widths, kh ≠ kw, bf16,
+             5×5 kernels whose halo tiles are staged);
+             the compared call's launch count; kernel, plain and library
+             times from CUDA events — per call, and for the kernel and the
+             library also per launch replayed from a CUDA graph, without the
+             host — and the bound from bytes (3.35 TB/s) and operations
              (float multiply-adds as 2 flops at 67 TFLOP/s; integer XOR,
              popcount and add at the INT32 rate). The library call is a
              yardstick the port never calls: ``torch.matmul`` of the unpacked
@@ -50,7 +54,8 @@ each printing one JSON line per record:
 Then the per-kernel summary line ``{"kernels": [...]}`` (``launches`` from
 the serve phase for binary_matmul, splitk_matvec and conv2d_shift, from the
 ops phase for conv2d_shift_tiled and binary_conv2d; the other numbers from
-each kernel's main-path row), the card's name and power limit from
+each kernel's main-path row, ``library_graph_ms`` the library yardstick
+replayed from a CUDA graph), the card's name and power limit from
 ``nvidia-smi``, and the last line ``{"ok": true, "device": {...}}``. Any
 failed check raises: the script exits non-zero and prints no result line.
 Without CUDA it exits 2.
@@ -164,7 +169,8 @@ def kernel_row(torch, name, shape, kernel, plain, library, args, nbytes,
                ops, ops_per_s, tol=None, counter=None):
     """Run ``kernel`` once against ``plain`` on the same CUDA inputs (exact
     when ``tol`` is None, else ``(rtol, atol)``), then time the kernel, its
-    CUDA graph replay, the plain version and the library yardstick.
+    CUDA graph replay, the plain version and the library yardstick, per
+    call and replayed from a CUDA graph.
     ``counter`` is the wrapper that counts launches (``kernel`` itself
     unless that is a closure around it)."""
     counter = counter or kernel
@@ -196,6 +202,7 @@ def kernel_row(torch, name, shape, kernel, plain, library, args, nbytes,
         "graph_ms": graph_ms(torch, lambda: kernel(*args)),
         "plain_ms": cuda_ms(torch, lambda: plain(*args)),
         "library_ms": cuda_ms(torch, library),
+        "library_graph_ms": graph_ms(torch, library),
         "bytes": nbytes, "ops": ops,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -298,6 +305,33 @@ def rows_conv(torch):
                       torch.randn((kk, kk), generator=g,
                                   device="cuda").to(dt),
                       (3e-2, 0.5) if bf16 else (1e-5, 1e-5)))
+    # the redesigned tiling: many small images per launch, an odd width,
+    # kh != kw with per-image bf16 kernels
+    cases += [
+        ([1000, 64, 8, 3, "f32"],
+         torch.randint(0, 256, (1000, 64, 8), generator=g,
+                       device="cuda").float(),
+         torch.randint(0, 256, (1000, 3, 3), generator=g,
+                       device="cuda").float(), None),
+        ([0, 1026, 1027, 3, "f32"],
+         torch.randint(0, 16, (1026, 1027), generator=g,
+                       device="cuda").float(),
+         torch.randint(0, 16, (3, 3), generator=g, device="cuda").float(),
+         None),
+        ([8, 130, 68, "2x5", "bf16"],
+         torch.randn((8, 130, 68), generator=g,
+                     device="cuda").to(torch.bfloat16),
+         torch.randn((8, 2, 5), generator=g,
+                     device="cuda").to(torch.bfloat16), (3e-2, 0.5))]
+    # kernels of more than 3×3 taps stage halo tiles with cp.async: rows
+    # 16-byte aligned (1028 f32) and 4-byte aligned (1027 f32)
+    for W in (1028, 1027):
+        cases.append((
+            [0, 1028, W, 5, "f32"],
+            torch.randint(0, 16, (1028, W), generator=g,
+                          device="cuda").float(),
+            torch.randint(0, 16, (5, 5), generator=g, device="cuda").float(),
+            None))
     rows = []
     for shape, a, k, tol in cases:
         kh, kw = k.shape[-2:]
@@ -313,22 +347,50 @@ def rows_tiled(torch):
     from repro_torch.kernels.conv2d_shift import (conv2d_shift_tiled,
                                                   conv2d_shift_tiled_plain)
     g = torch.Generator(device="cuda").manual_seed(12)
-    # the ops path's shape: a 1026×1026 image, 3×3 taps, the default
-    # 128×128 output tiles (a 67.6 KB halo tile: the shared-memory opt-in)
+    # (label, a, k, (bh, bw), tolerance): the ops path's shape first — a
+    # 1026×1026 image, 3×3 taps, the default 128×128 reference tiles
     cases = [([1026, 1026, 3, 128, 128],
               torch.randint(0, 16, (1026, 1026), generator=g,
                             device="cuda").float(),
               torch.randint(0, 16, (3, 3), generator=g,
-                            device="cuda").float(), None)]
+                            device="cuda").float(), (128, 128), None)]
     for H, W, k, bh, bw in [(66, 66, 3, 32, 32), (131, 67, 4, 64, 32)]:
         cases.append(([H, W, k, bh, bw],
                       torch.randn((H, W), generator=g, device="cuda"),
                       torch.randn((k, k), generator=g, device="cuda"),
-                      (1e-5, 1e-5)))
+                      (bh, bw), (1e-5, 1e-5)))
+    # 256×256 reference tiles (a 266 KB halo tile, once refused), an odd
+    # bf16 width, kh != kw, and a batch of bf16 images with per-image f32
+    # kernels
+    cases += [
+        ([514, 514, 3, 256, 256],
+         torch.randint(0, 16, (514, 514), generator=g,
+                       device="cuda").float(),
+         torch.randint(0, 16, (3, 3), generator=g, device="cuda").float(),
+         (256, 256), None),
+        ([1026, 1027, 3, 128, 205, "bf16"],
+         torch.randint(0, 16, (1026, 1027), generator=g,
+                       device="cuda").to(torch.bfloat16),
+         torch.randint(0, 16, (3, 3), generator=g,
+                       device="cuda").to(torch.bfloat16), (128, 205), None),
+        ([129, 132, "2x5", 64, 32],
+         torch.randn((129, 132), generator=g, device="cuda"),
+         torch.randn((2, 5), generator=g, device="cuda"), (64, 32),
+         (1e-5, 1e-5)),
+        ([4, 66, 66, 3, 32, 32, "bf16 a, f32 k"],
+         torch.randn((4, 66, 66), generator=g,
+                     device="cuda").to(torch.bfloat16),
+         torch.randn((4, 3, 3), generator=g, device="cuda"), (32, 32),
+         (3e-2, 0.5)),
+        # staged halo tiles (5×5 taps) of bf16 rows only 2-byte aligned
+        ([1028, 1029, 5, 128, 205, "bf16"],
+         torch.randint(0, 16, (1028, 1029), generator=g,
+                       device="cuda").to(torch.bfloat16),
+         torch.randint(0, 16, (5, 5), generator=g,
+                       device="cuda").to(torch.bfloat16), (128, 205), None)]
     rows = []
-    for shape, a, k, tol in cases:
-        bh, bw = shape[3], shape[4]
-        kh, kw = k.shape
+    for shape, a, k, (bh, bw), tol in cases:
+        kh, kw = k.shape[-2:]
         out = conv2d_shift_tiled_plain(a, k, bh, bw)
         rows.append(kernel_row(
             torch, "conv2d_shift_tiled", shape,
@@ -676,7 +738,8 @@ def main() -> int:
             "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],
-            "library_ms": main_row["library_ms"]})
+            "library_ms": main_row["library_ms"],
+            "library_graph_ms": main_row["library_graph_ms"]})
     emit("done", seconds=time.perf_counter() - t0)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

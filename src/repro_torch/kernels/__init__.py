@@ -7,8 +7,10 @@ Each is CUDA C++ for sm_90a in place of a Pallas kernel of
                           (``binary_matmul.py``, ``csrc/binary_matmul.cu``)
     splitk_matvec       — f32-accumulate GEMV (MatPIM §II-A block/reduce)
                           (``splitk_matvec.py``, ``csrc/splitk_matvec.cu``)
-    conv2d_shift        — shift-and-add conv, whole image (MatPIM §III-A)
-    conv2d_shift_tiled  — the same, output tiled with halo input tiles
+    conv2d_shift        — shift-and-add conv, register strips of outputs
+                          over CTA tiles chosen for the card (MatPIM §III-A)
+    conv2d_shift_tiled  — the same kernel under the reference's bh×bw tile
+                          contract
     binary_conv2d       — channel-packed XNOR conv (MatPIM §III-C)
                           (all three ``conv2d_shift.py``,
                           ``csrc/conv2d_shift.cu``)

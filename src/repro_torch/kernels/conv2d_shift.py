@@ -6,8 +6,9 @@ im2col buffer is ever built; each function here is a valid
 cross-correlation (no flip) with f32 accumulation:
 
 * :func:`conv2d_shift`       — the whole image per call;
-* :func:`conv2d_shift_tiled` — the output tiled bh×bw with halo input tiles
-  (the output must tile evenly, as in the reference);
+* :func:`conv2d_shift_tiled` — the reference's bh×bw output tiling, whose
+  contract it keeps (the output must tile evenly) while computing the same
+  output;
 * :func:`binary_conv2d`      — ±1 conv over channel-packed int32 words,
   ``kh·kw·C − 2·Σ popcount(a ^ k)``.
 
@@ -19,13 +20,20 @@ is no fallback from one to the other. Each wrapper counts its launches in
 
 The float convs take an optional leading batch axis: images ``(B, H, W)``
 with one kernel ``(kh, kw)`` for all or one per image ``(B, kh, kw)``,
-giving ``(B, OH, OW)``; each batch entry is the TPU kernel's function, and
-the CUDA kernel serves the whole batch in one launch.
+giving ``(B, OH, OW)``; each batch entry is the TPU kernel's function. Both
+run one CUDA kernel, one launch per call, whose CTA tiling is chosen for the
+card by :func:`conv_launch_plan`, not taken from the reference's ``bh×bw``
+(a TPU block size). The host path is lean: everything that depends only on
+the shapes and dtypes — the checks, the output shape and the packed launch
+arguments — is computed once per signature and cached, so a call makes a
+few device and layout checks, one ``torch.empty`` and one ctypes call.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -34,8 +42,128 @@ from .binary_matmul import popcount32
 
 SOURCE = "conv2d_shift.cu"
 DTYPES = (torch.float32, torch.bfloat16)
-# shared memory a block may use on the H100 (227 KB)
-MAX_SMEM_BYTES = 232448
+
+# The launch plan's constants, for the H100 SXM (scripts/conv_plan_sweep.py
+# times the alternatives).
+STRIP = 4             # output rows per thread (the kernel's register strip)
+TALL_STRIP = 8        # ... in images of TALL_STRIP_OUTPUTS, read directly
+MAX_THREADS = 256     # the most threads a conv CTA has
+SPLIT_OUTPUTS = 512   # a CTA is not split below this many outputs ...
+MIN_CTAS = 2 * 132    # ... once there are two CTAs per SM (132 SMs)
+# enough outputs for MIN_CTAS CTAs of MAX_THREADS tall strips
+TALL_STRIP_OUTPUTS = MIN_CTAS * MAX_THREADS * TALL_STRIP
+MAX_TILE_W = 128      # the widest CTA tile, in output columns
+MAX_IMAGES = 64       # images per CTA (the block's z extent)
+STAGE_TAPS = 9        # kernels of more taps stage halo tiles in shared
+DIRECT_CTAS = 132     # memory, in launches of at least this many CTAs
+SMEM_BYTES = 48 * 1024   # dynamic shared memory a block gets with no opt-in
+
+
+class LaunchPlan(NamedTuple):
+    """One launch of the float conv kernel: ``TH × TW`` output tiles of
+    ``images_per_cta`` images per CTA, ``R`` rows per thread, halo tiles
+    staged ``KV × KU`` kernel taps at a time, rows ``pitch`` elements apart
+    in shared memory."""
+    TH: int
+    TW: int
+    images_per_cta: int
+    R: int
+    staged: bool              # halo tiles through shared memory
+    KV: int
+    KU: int
+    pitch: int
+    block: tuple[int, int, int]   # (TW, TH / R, images_per_cta) threads
+    grid: tuple[int, int]     # (row tiles × column tiles, image groups)
+    smem: int                 # dynamic shared memory, bytes
+    taps_off: int             # where the f32 taps start in it
+
+    @property
+    def threads(self) -> int:
+        return math.prod(self.block)
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+@functools.lru_cache(maxsize=1024)
+def conv_launch_plan(OH: int, OW: int, B: int, kh: int, kw: int,
+                     dtype: torch.dtype) -> LaunchPlan:
+    """The CTA tiling of one conv launch over ``B`` images with ``OH × OW``
+    outputs each, for an ``A`` of ``dtype``.
+
+    Each thread owns a strip of ``R`` rows of one output column (``STRIP``;
+    ``TALL_STRIP`` for kernels read directly in images of
+    ``TALL_STRIP_OUTPUTS`` outputs or more), so a CTA tile is ``TH = R·s``
+    rows by ``TW ≤ MAX_TILE_W`` columns, at most ``MAX_THREADS`` strips.
+    Tiles shrink in height until there are ``MIN_CTAS`` CTAs or a CTA is
+    down to ``SPLIT_OUTPUTS`` outputs; images whose tile gives fewer than 64
+    threads share a CTA (``images_per_cta``), up to ``SPLIT_OUTPUTS``
+    outputs. So a CTA computes at most 512 outputs whenever there are fewer
+    than ``MIN_CTAS``: ``B·OH·OW ≥ 132·512`` gives at least 132 CTAs.
+
+    Kernels of at most ``STAGE_TAPS`` taps (3×3 and smaller) read A straight
+    from global memory through L1: the strip already reuses each value in
+    registers, and a staging barrier costs more than it saves. Larger
+    kernels read each pixel more often and stage halo tiles in shared
+    memory, unless the launch has fewer than ``DIRECT_CTAS`` CTAs (one per
+    SM at most, so no CTA's staging would overlap another's work). Staged
+    halo tiles and taps must fit ``SMEM_BYTES``; a kernel too large for that
+    is staged in chunks of ``KV × KU`` taps.
+    """
+    es = dtype.itemsize
+    many_taps = kh * kw > STAGE_TAPS
+    R = STRIP if many_taps or OH * OW < TALL_STRIP_OUTPUTS else TALL_STRIP
+    ncol = -(-OW // MAX_TILE_W)
+    TW = OW if ncol == 1 else _round_up(-(-OW // ncol), 8)
+    ncol = -(-OW // TW)
+    strips = -(-OH // R)
+    s = min(strips, max(1, MAX_THREADS // TW))
+
+    def ctas(s):
+        return -(-strips // s) * ncol * B
+
+    while s > 1 and TW * s * R > SPLIT_OUTPUTS and ctas(s) < MIN_CTAS:
+        s = -(-s // 2)
+    ipc = 1
+    if TW * s < 64:
+        ipc = max(1, min(B, MAX_IMAGES, SPLIT_OUTPUTS // (TW * s * R)))
+    TH = R * s
+
+    def shared(ipc, KV, KU):
+        pitch = _round_up((TW + KU - 1) * es, 16) // es
+        taps_off = ipc * (TH + KV - 1) * pitch * es
+        return pitch, taps_off, taps_off + 4 * ipc * KV * KU
+
+    grid = (-(-OH // TH) * ncol, -(-B // ipc))
+    if not many_taps or grid[0] * grid[1] < DIRECT_CTAS:
+        return LaunchPlan(
+            TH=TH, TW=TW, images_per_cta=ipc, R=R, staged=False, KV=kh,
+            KU=kw, pitch=0, block=(TW, s, ipc), grid=grid, smem=0,
+            taps_off=0)
+    KV, KU = kh, kw
+    # at one tap per chunk a halo tile is at most 4·MAX_THREADS·R bytes
+    while shared(ipc, KV, KU)[2] > SMEM_BYTES and ipc * KV * KU > 1:
+        if ipc > 1:
+            ipc = -(-ipc // 2)
+        elif KU > 1 and (KV == 1 or TW + KU >= TH + KV):
+            KU = -(-KU // 2)
+        else:
+            KV = -(-KV // 2)
+    pitch, taps_off, smem = shared(ipc, KV, KU)
+    return LaunchPlan(
+        TH=TH, TW=TW, images_per_cta=ipc, R=R, staged=True, KV=KV, KU=KU,
+        pitch=pitch, block=(TW, s, ipc), grid=(grid[0], -(-B // ipc)),
+        smem=smem, taps_off=taps_off)
+
+
+class _Args(ctypes.Structure):
+    """The kernel's launch arguments (``ConvArgs`` in the CUDA source, same
+    field order), packed once per signature and passed by address."""
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "B", "H", "W", "kh", "kw", "OH", "OW", "TH", "TW", "ipc", "R",
+        "staged", "KV", "KU", "pitch", "ncol", "smem", "taps_off", "grid_x",
+        "grid_y", "k_batched", "a_bf16", "k_bf16")]
 
 
 def conv2d_shift_plain(a: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -53,80 +181,6 @@ def conv2d_shift_plain(a: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def _check_conv(name: str, a: torch.Tensor, k: torch.Tensor) -> None:
-    if a.dtype not in DTYPES or k.dtype not in DTYPES:
-        raise TypeError(f"{name} takes float32 or bfloat16, got {a.dtype} "
-                        f"and {k.dtype}")
-    if not ((a.ndim == 2 and k.ndim == 2)
-            or (a.ndim == 3 and k.ndim in (2, 3))):
-        raise ValueError(f"{name} takes (H, W) and (kh, kw), or batched "
-                         f"(B, H, W) and (kh, kw) or (B, kh, kw); got "
-                         f"{tuple(a.shape)} and {tuple(k.shape)}")
-    if k.ndim == 3 and k.shape[0] != a.shape[0]:
-        raise ValueError(f"{k.shape[0]} kernels for {a.shape[0]} images")
-    if k.shape[-2] > a.shape[-2] or k.shape[-1] > a.shape[-1] \
-            or min(k.shape[-2:]) < 1:
-        raise ValueError(f"kernel {tuple(k.shape[-2:])} does not fit the "
-                         f"image {tuple(a.shape[-2:])}")
-    if a.device != k.device:
-        raise ValueError(f"operands on {a.device} and {k.device}")
-
-
-def _cuda_ready(name: str, *ts: torch.Tensor) -> bool:
-    """True for CUDA operands on the current card, False for CPU operands;
-    raises for anything else."""
-    dev = ts[0].device
-    if dev.type == "cpu":
-        return False
-    if dev.type != "cuda":
-        raise ValueError(f"{name} runs on CUDA or the CPU, not {dev}")
-    if not all(t.is_contiguous() for t in ts):
-        raise ValueError(f"{name} takes contiguous operands")
-    return True
-
-
-def _launch_conv(entry, a, k, out, *extra) -> None:
-    batched = a.ndim == 3
-    nb = a.shape[0] if batched else 1
-    H, W = a.shape[-2:]
-    kh, kw = k.shape[-2:]
-    if max(H * W, nb) >= 1 << 31 or nb > 65535:
-        raise ValueError(f"conv shape {(nb, H, W)} exceeds the kernel's "
-                         f"index range")
-    err = entry(a.data_ptr(), k.data_ptr(), out.data_ptr(), nb, H, W, kh, kw,
-                int(k.ndim == 3), int(a.dtype == torch.bfloat16),
-                int(k.dtype == torch.bfloat16), *extra,
-                torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"conv2d_shift launch failed: CUDA error {err}")
-
-
-def conv2d_shift(a: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """Valid cross-correlation, f32 accumulate: a (H, W), k (kh, kw) →
-    (H−kh+1, W−kw+1) float32, or batched a (B, H, W) with k (kh, kw) or
-    (B, kh, kw) → (B, OH, OW).
-
-    CUDA tensors go to the kernel (one launch; ``conv2d_shift.launches``
-    counts launches), CPU tensors to :func:`conv2d_shift_plain`.
-    """
-    _check_conv("conv2d_shift", a, k)
-    if not _cuda_ready("conv2d_shift", a, k):
-        return conv2d_shift_plain(a, k)
-    if a.device.index != torch.cuda.current_device():
-        with torch.cuda.device(a.device):    # launch on the operands' card
-            return conv2d_shift(a, k)
-    OH, OW = a.shape[-2] - k.shape[-2] + 1, a.shape[-1] - k.shape[-1] + 1
-    out = torch.empty(a.shape[:-2] + (OH, OW), dtype=torch.float32,
-                      device=a.device)
-    if out.numel():
-        _launch_conv(_entries()[0], a, k, out)
-        conv2d_shift.launches += 1
-    return out
-
-
-conv2d_shift.launches = 0
-
-
 def tile_shape(a_shape, k_shape, bh: int = 128, bw: int = 128):
     """The reference's tile contract: ``(bh, bw)`` clamped to the output,
     which must tile evenly (``ValueError`` otherwise)."""
@@ -141,6 +195,110 @@ def tile_shape(a_shape, k_shape, bh: int = 128, bw: int = 128):
     return bh, bw
 
 
+class _Signature(NamedTuple):
+    out_shape: tuple
+    n_out: int
+    refusal: str | None       # why the kernel cannot take it (CUDA only)
+    args: _Args | None        # None when there is nothing to launch
+    args_addr: int
+
+
+@functools.lru_cache(maxsize=256)
+def _signature(name: str, a_shape, k_shape, a_dtype, k_dtype,
+               tile=None) -> _Signature:
+    """Everything a call needs that depends only on shapes and dtypes,
+    checked and computed once: raises ``TypeError`` / ``ValueError`` on
+    operands neither version takes (a raise is not cached), else gives the
+    output shape, why the kernel would refuse the shape (its index range),
+    and the packed launch arguments. ``tile`` is the tiled wrapper's
+    ``(bh, bw)``."""
+    if a_dtype not in DTYPES or k_dtype not in DTYPES:
+        raise TypeError(f"{name} takes float32 or bfloat16, got {a_dtype} "
+                        f"and {k_dtype}")
+    an, kn = len(a_shape), len(k_shape)
+    if not ((an == 2 and kn == 2) or (an == 3 and kn in (2, 3))):
+        raise ValueError(f"{name} takes (H, W) and (kh, kw), or batched "
+                         f"(B, H, W) and (kh, kw) or (B, kh, kw); got "
+                         f"{tuple(a_shape)} and {tuple(k_shape)}")
+    if kn == 3 and k_shape[0] != a_shape[0]:
+        raise ValueError(f"{k_shape[0]} kernels for {a_shape[0]} images")
+    (H, W), (kh, kw) = a_shape[-2:], k_shape[-2:]
+    if kh > H or kw > W or min(kh, kw) < 1:
+        raise ValueError(f"kernel {(kh, kw)} does not fit the image "
+                         f"{(H, W)}")
+    nb = a_shape[0] if an == 3 else 1
+    OH, OW = H - kh + 1, W - kw + 1
+    out_shape = tuple(a_shape[:-2]) + (OH, OW)
+    refusal = None
+    if tile is not None:
+        bh, _ = tile_shape(a_shape, k_shape, *tile)
+        if OH // bh > 65535:
+            refusal = f"{OH // bh} tile rows exceed the kernel's grid"
+    if max(H * W, nb) >= 1 << 31 or nb > 65535:
+        refusal = (f"conv shape {(nb, H, W)} exceeds the kernel's index "
+                   f"range")
+    if refusal or nb * OH * OW == 0:
+        return _Signature(out_shape, 0, refusal, None, 0)
+    plan = conv_launch_plan(OH, OW, nb, kh, kw, a_dtype)
+    args = _Args(nb, H, W, kh, kw, OH, OW, plan.TH, plan.TW,
+                 plan.images_per_cta, plan.R, int(plan.staged), plan.KV,
+                 plan.KU, plan.pitch, -(-OW // plan.TW), plan.smem,
+                 plan.taps_off, *plan.grid, int(kn == 3),
+                 int(a_dtype == torch.bfloat16),
+                 int(k_dtype == torch.bfloat16))
+    return _Signature(out_shape, nb * OH * OW, None, args,
+                      ctypes.addressof(args))
+
+
+def _conv(wrapper, a: torch.Tensor, k: torch.Tensor, tile=None):
+    """The float convs' shared path: the checks, then one launch for CUDA
+    operands (counted on ``wrapper``), or ``None`` for CPU operands."""
+    sig = _signature(wrapper.__name__, a.shape, k.shape, a.dtype, k.dtype,
+                     tile)
+    dev = a.get_device()
+    if not (a.is_cuda and k.is_cuda and k.get_device() == dev):
+        if a.device != k.device:
+            raise ValueError(f"operands on {a.device} and {k.device}")
+        if a.device.type != "cpu":
+            raise ValueError(f"{wrapper.__name__} runs on CUDA or the CPU, "
+                             f"not {a.device}")
+        return None
+    if not (a.is_contiguous() and k.is_contiguous()):
+        raise ValueError(f"{wrapper.__name__} takes contiguous operands")
+    if dev != torch.cuda.current_device():
+        with torch.cuda.device(dev):    # launch on the operands' card
+            return _conv(wrapper, a, k, tile)
+    if sig.refusal:
+        raise ValueError(sig.refusal)
+    # the current card (just checked) by name, and its stream by index: the
+    # cheapest public forms (scripts/conv_wrapper_host.py times them)
+    out = torch.empty(sig.out_shape, dtype=torch.float32, device="cuda")
+    if sig.n_out:
+        err = _entries()[0](a.data_ptr(), k.data_ptr(), out.data_ptr(),
+                            sig.args_addr,
+                            torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{wrapper.__name__} launch failed: CUDA "
+                               f"error {err}")
+        wrapper.launches += 1
+    return out
+
+
+def conv2d_shift(a: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Valid cross-correlation, f32 accumulate: a (H, W), k (kh, kw) →
+    (H−kh+1, W−kw+1) float32, or batched a (B, H, W) with k (kh, kw) or
+    (B, kh, kw) → (B, OH, OW).
+
+    CUDA tensors go to the kernel (one launch; ``conv2d_shift.launches``
+    counts launches), CPU tensors to :func:`conv2d_shift_plain`.
+    """
+    out = _conv(conv2d_shift, a, k)
+    return conv2d_shift_plain(a, k) if out is None else out
+
+
+conv2d_shift.launches = 0
+
+
 def conv2d_shift_tiled_plain(a: torch.Tensor, k: torch.Tensor,
                              bh: int = 128, bw: int = 128) -> torch.Tensor:
     """Plain PyTorch version of :func:`conv2d_shift_tiled`: the tile
@@ -152,40 +310,33 @@ def conv2d_shift_tiled_plain(a: torch.Tensor, k: torch.Tensor,
 
 def conv2d_shift_tiled(a: torch.Tensor, k: torch.Tensor, bh: int = 128,
                        bw: int = 128) -> torch.Tensor:
-    """Valid cross-correlation with the output tiled bh×bw and halo input
-    tiles; shapes as :func:`conv2d_shift`. bh, bw clamp to the output,
-    which must tile evenly (``ValueError`` otherwise: pad the input).
+    """Valid cross-correlation under the reference's output tiling; shapes
+    as :func:`conv2d_shift`. bh, bw clamp to the output, which must tile
+    evenly (``ValueError`` otherwise: pad the input); any such tiling runs.
 
-    CUDA tensors go to the kernel (one launch, one thread block per tile;
-    ``conv2d_shift_tiled.launches`` counts launches), CPU tensors to
+    CUDA tensors go to the same kernel as :func:`conv2d_shift`, whose CTA
+    tiles are chosen for the card (:func:`conv_launch_plan`), not bh×bw (one
+    launch; ``conv2d_shift_tiled.launches`` counts launches), CPU tensors to
     :func:`conv2d_shift_tiled_plain`.
     """
-    _check_conv("conv2d_shift_tiled", a, k)
-    if not _cuda_ready("conv2d_shift_tiled", a, k):
-        return conv2d_shift_tiled_plain(a, k, bh, bw)
-    bh, bw = tile_shape(a.shape, k.shape, bh, bw)
-    if a.device.index != torch.cuda.current_device():
-        with torch.cuda.device(a.device):    # launch on the operands' card
-            return conv2d_shift_tiled(a, k, bh, bw)
-    kh, kw = k.shape[-2:]
-    smem = 4 * ((bh + kh - 1) * (bw + kw - 1) + kh * kw)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"tile {(bh, bw)} with a {(kh, kw)} kernel needs "
-                         f"{smem} B of shared memory, over the "
-                         f"{MAX_SMEM_BYTES} B a block may use; pass a "
-                         f"smaller bh, bw")
-    OH, OW = a.shape[-2] - kh + 1, a.shape[-1] - kw + 1
-    if (OH // bh) > 65535:
-        raise ValueError(f"{OH // bh} tile rows exceed the kernel's grid")
-    out = torch.empty(a.shape[:-2] + (OH, OW), dtype=torch.float32,
-                      device=a.device)
-    if out.numel():
-        _launch_conv(_entries()[1], a, k, out, bh, bw)
-        conv2d_shift_tiled.launches += 1
-    return out
+    out = _conv(conv2d_shift_tiled, a, k, (int(bh), int(bw)))
+    return conv2d_shift_tiled_plain(a, k, bh, bw) if out is None else out
 
 
 conv2d_shift_tiled.launches = 0
+
+
+def _cuda_ready(name: str, *ts: torch.Tensor) -> bool:
+    """True for CUDA operands on the current card, False for CPU operands;
+    raises for anything else."""
+    dev = ts[0].device
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"{name} runs on CUDA or the CPU, not {dev}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"{name} takes contiguous operands")
+    return True
 
 
 def binary_conv2d_plain(a: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -234,7 +385,7 @@ def binary_conv2d(a: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     out = torch.empty((H - kh + 1, W - kw + 1), dtype=torch.int32,
                       device=a.device)
     if out.numel():
-        err = _entries()[2](a.data_ptr(), k.data_ptr(), out.data_ptr(), H, W,
+        err = _entries()[1](a.data_ptr(), k.data_ptr(), out.data_ptr(), H, W,
                             Cw, kh, kw,
                             torch.cuda.current_stream().cuda_stream)
         if err != 0:
@@ -249,17 +400,15 @@ binary_conv2d.launches = 0
 
 @functools.cache
 def _entries():
-    """The three C entry points (conv, tiled conv, binary conv), built and
-    loaded at first use, with their ctypes signatures (pointers and the
-    stream as ``c_void_p``)."""
+    """The two C entry points (float conv, binary conv), built and loaded
+    at first use, with their ctypes signatures (pointers, the packed launch
+    arguments' address and the stream as ``c_void_p``)."""
     lib = load_library(SOURCE)
     P, I = ctypes.c_void_p, ctypes.c_int
     conv = lib.matpim_conv2d_shift
-    conv.argtypes = [P, P, P] + [I] * 8 + [P]
-    tiled = lib.matpim_conv2d_shift_tiled
-    tiled.argtypes = [P, P, P] + [I] * 10 + [P]
+    conv.argtypes = [P, P, P, P, P]
     binary = lib.matpim_binary_conv2d
     binary.argtypes = [P, P, P] + [I] * 5 + [P]
-    for fn in (conv, tiled, binary):
+    for fn in (conv, binary):
         fn.restype = ctypes.c_int
-    return conv, tiled, binary
+    return conv, binary

@@ -82,8 +82,9 @@ def matvec(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def conv2d(a: torch.Tensor, k: torch.Tensor, tiled: bool = False
            ) -> torch.Tensor:
-    """Valid cross-correlation (``conv2d_shift``, or its output-tiled
-    variant ``conv2d_shift_tiled`` at its default tiles)."""
+    """Valid cross-correlation (``conv2d_shift``, or ``conv2d_shift_tiled``
+    under the reference's default 128×128 tile contract: the same kernel,
+    whose CTA tiles the launch plan chooses for the card either way)."""
     fn = conv2d_shift_tiled if tiled else conv2d_shift
     return fn(a, k)
 
