@@ -27,7 +27,9 @@ each printing one JSON line per record:
              ±1 operands (binary_matmul), ``torch.mv`` / ``torch.matmul``
              (splitk_matvec), ``F.conv2d`` with ``groups=B`` (the convs) and
              ``F.conv2d`` of the unpacked ±1 floats (binary_conv2d); TF32 is
-             off for both matmul and cuDNN.
+             off for both matmul and cuDNN. For ``conv2d_shift`` at the
+             served shape, also the host time of each step of its wrapper
+             (``time.perf_counter_ns`` over 10⁴ calls each).
 3. engine  — ``BinaryMatvecPlan(1024, 416)`` (565 cycles) at B ∈ {1, 20,
              33}, ``MatvecPlan(1024, 39, 8)`` (9474 cycles) at B ∈ {1, 27}
              and ``ConvPlan(64, 8, 3, 8)`` (9800 cycles; one kernel per
@@ -285,6 +287,53 @@ def _grouped_conv(torch, a, k):
     return lambda: F.conv2d(a4, k4, groups=B)
 
 
+def per_call_us(torch, fn, calls: int = 10_000) -> float:
+    """Host µs per call of ``fn`` over ``calls`` back-to-back calls (after
+    200 warm-up calls; the device is idle before and synced after)."""
+    for _ in range(200):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter_ns()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls / 1e3
+
+
+def conv_host_steps(torch, a, k) -> None:
+    """Host time of each step the ``conv2d_shift`` wrapper makes on CUDA
+    operands, alone, beside the whole call and the library yardstick."""
+    from repro_torch.kernels import conv2d_shift as cs
+    entry = cs._entries()[0]
+    sig = cs._signature("conv2d_shift", a.shape, k.shape, a.dtype, k.dtype,
+                        None)
+    out = a.new_empty(sig.out_shape, dtype=torch.float32)
+    stream = torch.cuda.current_stream(0).cuda_stream
+    before = cs.conv2d_shift.launches
+    steps = {
+        "signature": lambda: cs._signature(
+            "conv2d_shift", a.shape, k.shape, a.dtype, k.dtype, None),
+        "device_checks": lambda: (a.is_cuda and k.is_cuda
+                                  and k.get_device() == a.get_device()
+                                  and a.is_contiguous()
+                                  and k.is_contiguous()),
+        "current_device":
+            lambda: a.get_device() != torch.cuda.current_device(),
+        "new_empty": lambda: a.new_empty(sig.out_shape, dtype=torch.float32),
+        "stream": lambda: torch.cuda.current_stream(0).cuda_stream,
+        "data_ptrs": lambda: (a.data_ptr(), k.data_ptr(), out.data_ptr()),
+        "ctypes_launch": lambda: entry(a.data_ptr(), k.data_ptr(),
+                                       out.data_ptr(), sig.args_addr, stream),
+        "call": lambda: cs.conv2d_shift(a, k),
+        "library": _grouped_conv(torch, a, k),
+        "loop": lambda: None,
+    }
+    emit("conv_host", kernel="conv2d_shift", shape=list(a.shape),
+         us_per_call={n: per_call_us(torch, fn) for n, fn in steps.items()})
+    cs.conv2d_shift.launches = before
+
+
 def rows_conv(torch):
     from repro_torch.kernels.conv2d_shift import (conv2d_shift,
                                                   conv2d_shift_plain)
@@ -340,6 +389,7 @@ def rows_conv(torch):
             torch, "conv2d_shift", shape, conv2d_shift, conv2d_shift_plain,
             _grouped_conv(torch, a, k), (a, k), _nbytes(a, k, out),
             2 * out.numel() * kh * kw, F32_FLOPS_PER_S, tol))
+    conv_host_steps(torch, *cases[0][1:3])
     return rows
 
 

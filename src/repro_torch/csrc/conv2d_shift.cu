@@ -32,6 +32,11 @@
 // FMAs instead of 36 loads. The 3 x 3 case is compiled with the taps in
 // registers. A warp's lanes hold neighbouring columns, so each load and each
 // stored output row is one contiguous run (a full 128-byte line at TW >= 32).
+// Stores stay scalar: with one column per thread a warp's store of one
+// output row already fills whole 128-byte lines, and float2 / float4 stores
+// would need two or four columns per thread, which halves or quarters the
+// threads of the small served tiles and needs an edge path for the rows of
+// odd-width outputs that are only 4-byte aligned (not measured).
 // Block and grid indices give the thread's column, strip and image without
 // a division.
 //
@@ -39,7 +44,7 @@
 // the repo) read A straight from global memory through L1: with the strip
 // reusing each value in registers, L1 serves the neighbours' overlap, and a
 // shared-memory stage and its barrier cost more than they save (measured
-// slower at every shape tried, scripts/conv_plan_sweep.py). Larger kernels
+// slower at every shape tried; PERF.md has the times). Larger kernels
 // read each pixel k*k times and stage halo tiles: each CTA copies its
 // (TH+kh-1) x (TW+kw-1) halo tile per image into shared memory with
 // cp.async, in the input's own dtype (bf16 is widened to f32 when read),
@@ -48,10 +53,10 @@
 // address, its row stride and the tile's column offset allow, with element
 // copies for the row's tail and for bf16 rows only 2-byte aligned. No TMA:
 // a 2D tensor map needs row strides that are multiples of 16 bytes, and a
-// 1026-wide f32 image has 4104-byte rows. A kernel too large for its halo
-// tile to fit the 48 KB a block gets without an opt-in is staged in chunks
-// of kernel rows and columns. Launches of fewer CTAs than SMs never stage:
-// with one CTA per SM at most, no staging overlaps another CTA's work.
+// 1026-wide f32 image has 4104-byte rows. A kernel whose halo tile and taps
+// would pass the 48 KB a block gets without an opt-in reads A directly, as
+// do launches of fewer CTAs than SMs: with one CTA per SM at most, no
+// staging overlaps another CTA's work.
 //
 // No tensor cores. The work is memory-bound: 9 multiply-adds per 8 bytes
 // moved (about 2.25 flop/byte) against a ridge near 20 for f32 on the H100;
@@ -78,7 +83,6 @@ struct ConvArgs {
   int B, H, W, kh, kw, OH, OW;
   int TH, TW, ipc, R;  // CTA output tile, images per CTA, rows per thread
   int staged;          // halo tiles through shared memory, or read direct
-  int KV, KU;          // kernel rows and columns staged per chunk
   int pitch;           // shared row pitch, in elements of A (16-byte rows)
   int ncol;            // column tiles; grid.x = row tiles * ncol
   int smem, taps_off;  // dynamic shared bytes, where the f32 taps start
@@ -146,12 +150,12 @@ __device__ __forceinline__ void stage_rows(int nrows, int n, int lvw, int t,
   }
 }
 
-// The register strip: acc[r] += x(r + v, h) * tap(v, h) over a kv x ku
-// block of taps, each input value x(j, h) read once and added into every
-// output of the strip that uses it (columns of taps outer, rows inner).
-// KH, KW > 0 unroll it with the taps in registers.
+// The register strip: acc[r] += x(r + v, h) * tap(v, h) over kh x kw
+// taps, each input value x(j, h) read once and added into every output of
+// the strip that uses it (columns of taps outer, rows inner). KH, KW > 0
+// unroll it with the taps in registers.
 template <int R, int KH, int KW, typename X, typename Tap>
-__device__ __forceinline__ void accumulate(float (&acc)[R], int kv, int ku,
+__device__ __forceinline__ void accumulate(float (&acc)[R], int kh, int kw,
                                            X x, Tap tap) {
   if constexpr (KH > 0 && KW > 0) {
     float tr[KH * KW];
@@ -170,12 +174,12 @@ __device__ __forceinline__ void accumulate(float (&acc)[R], int kv, int ku,
             acc[r] = fmaf(xv, tr[(j - r) * KW + h], acc[r]);
       }
   } else {
-    for (int h = 0; h < ku; ++h)
-      for (int j = 0; j < R + kv - 1; ++j) {
+    for (int h = 0; h < kw; ++h)
+      for (int j = 0; j < R + kh - 1; ++j) {
         const float xv = x(j, h);
 #pragma unroll
         for (int r = 0; r < R; ++r)
-          if (j - r >= 0 && j - r < kv)
+          if (j - r >= 0 && j - r < kh)
             acc[r] = fmaf(xv, tap(j - r, h), acc[r]);
       }
   }
@@ -203,7 +207,7 @@ __global__ void __launch_bounds__(kThreads)
   const int y0 = ty * p.TH, x0 = tx * p.TW, b0 = blockIdx.y * p.ipc;
   const int th = min(p.TH, p.OH - y0), tw = min(p.TW, p.OW - x0);
   const int nimg = min(p.ipc, p.B - b0);
-  const int img_elems = (p.TH + p.KV - 1) * p.pitch;
+  const int img_elems = (p.TH + kh - 1) * p.pitch;
   TA* tile = reinterpret_cast<TA*>(smem);
   float* taps = reinterpret_cast<float*>(smem + p.taps_off);
 
@@ -231,44 +235,32 @@ __global__ void __launch_bounds__(kThreads)
           [&](int v, int h) { return to_f32(kk[v * kw + h]); });
     }
   } else {
-    for (int v0 = 0; v0 < kh; v0 += p.KV) {
-      const int kv = KH > 0 ? KH : min(p.KV, kh - v0);
-      for (int u0 = 0; u0 < kw; u0 += p.KU) {
-        const int ku = KW > 0 ? KW : min(p.KU, kw - u0);
-        if (v0 | u0) __syncthreads();  // the previous chunk is consumed
-        const int hrows = th + kv - 1;
-        stage_rows<TA>(
-            nimg * hrows, tw + ku - 1, lvw, t, nthreads,
-            [&](int row, const TA*& src, TA*& dst) {
-              int ii = 0, hr = row;
-              if (nimg > 1) {
-                ii = row / hrows;
-                hr = row - ii * hrows;
-              }
-              src = a + ((long long)(b0 + ii) * p.H + y0 + v0 + hr) * p.W +
-                    x0 + u0;
-              dst = tile + ii * img_elems + hr * p.pitch;
-            });
-        for (int e = t; e < ntk * kv * ku; e += nthreads) {
-          const int ii = e / (kv * ku), q = e - ii * (kv * ku);
-          const int v = q / ku, h = q - v * ku;
-          taps[e] =
-              to_f32(k[(long long)(p.k_batched ? b0 + ii : 0) * kh * kw +
-                       (v0 + v) * kw + u0 + h]);
-        }
-        cp_async_wait_all();
-        __syncthreads();
-        if (i < nimg) {
-          // rows past the strip's valid outputs may read halo rows that
-          // were not staged; they feed only outputs that are never stored
-          const TA* col = tile + i * img_elems + s * R * p.pitch + c;
-          const float* tp = taps + (p.k_batched ? i : 0) * kv * ku;
-          accumulate<R, KH, KW>(
-              acc, kv, ku,
-              [&](int j, int h) { return to_f32(col[j * p.pitch + h]); },
-              [&](int v, int h) { return tp[v * ku + h]; });
-        }
-      }
+    const int hrows = th + kh - 1;
+    stage_rows<TA>(nimg * hrows, tw + kw - 1, lvw, t, nthreads,
+                   [&](int row, const TA*& src, TA*& dst) {
+                     int ii = 0, hr = row;
+                     if (nimg > 1) {
+                       ii = row / hrows;
+                       hr = row - ii * hrows;
+                     }
+                     src = a + ((long long)(b0 + ii) * p.H + y0 + hr) * p.W +
+                           x0;
+                     dst = tile + ii * img_elems + hr * p.pitch;
+                   });
+    // the CTA's images' kernels are contiguous in k
+    const TK* kk = k + (p.k_batched ? (long long)b0 * kh * kw : 0);
+    for (int e = t; e < ntk * kh * kw; e += nthreads) taps[e] = to_f32(kk[e]);
+    cp_async_wait_all();
+    __syncthreads();
+    if (i < nimg) {
+      // rows past the strip's valid outputs may read halo rows that were
+      // not staged; they feed only outputs that are never stored
+      const TA* col = tile + i * img_elems + s * R * p.pitch + c;
+      const float* tp = taps + (p.k_batched ? i : 0) * kh * kw;
+      accumulate<R, KH, KW>(
+          acc, kh, kw,
+          [&](int j, int h) { return to_f32(col[j * p.pitch + h]); },
+          [&](int v, int h) { return tp[v * kw + h]; });
     }
   }
   if (i < nimg && c < tw) {
@@ -312,7 +304,7 @@ void launch_conv(const void* a, const void* k, void* out, const ConvArgs& p,
 template <bool STAGED, typename TA, typename TK>
 void launch_staged(const void* a, const void* k, void* out,
                    const ConvArgs& p, int lvw, cudaStream_t stream) {
-  const bool k3 = p.kh == 3 && p.kw == 3 && p.KV == 3 && p.KU == 3;
+  const bool k3 = p.kh == 3 && p.kw == 3;
   if (p.R == 8)
     k3 ? launch_conv<STAGED, 8, 3, 3, TA, TK>(a, k, out, p, lvw, stream)
        : launch_conv<STAGED, 8, 0, 0, TA, TK>(a, k, out, p, lvw, stream);
@@ -329,13 +321,12 @@ void launch_typed(const void* a, const void* k, void* out, const ConvArgs& p,
 }
 
 // log2 of the widest cp.async (16, 8 or 4 bytes) that A's address, its row
-// stride, the column offset of every tile and of every kernel-column chunk
-// allow; 1 (bf16 only) copies the rows element by element.
+// stride and the column offset of every tile allow; 1 (bf16 only) copies the
+// rows element by element.
 int copy_width_log2(const void* a, const ConvArgs& p) {
   const long long es = p.a_bf16 ? 2 : 4;
   const long long offsets[] = {(long long)(uintptr_t)a, p.W * es,
-                               p.ncol > 1 ? p.TW * es : 0,
-                               p.KU < p.kw ? p.KU * es : 0};
+                               p.ncol > 1 ? p.TW * es : 0};
   int lvw = 4;
   for (long long o : offsets)
     while ((1LL << lvw) > es && o % (1LL << lvw)) --lvw;

@@ -43,8 +43,8 @@ from .binary_matmul import popcount32
 SOURCE = "conv2d_shift.cu"
 DTYPES = (torch.float32, torch.bfloat16)
 
-# The launch plan's constants, for the H100 SXM (scripts/conv_plan_sweep.py
-# times the alternatives).
+# The launch plan's constants, for the H100 SXM (PERF.md has the times of
+# the alternatives).
 STRIP = 4             # output rows per thread (the kernel's register strip)
 TALL_STRIP = 8        # ... in images of TALL_STRIP_OUTPUTS, read directly
 MAX_THREADS = 256     # the most threads a conv CTA has
@@ -61,16 +61,13 @@ SMEM_BYTES = 48 * 1024   # dynamic shared memory a block gets with no opt-in
 
 class LaunchPlan(NamedTuple):
     """One launch of the float conv kernel: ``TH × TW`` output tiles of
-    ``images_per_cta`` images per CTA, ``R`` rows per thread, halo tiles
-    staged ``KV × KU`` kernel taps at a time, rows ``pitch`` elements apart
-    in shared memory."""
+    ``images_per_cta`` images per CTA, ``R`` rows per thread; staged halo
+    rows lie ``pitch`` elements apart in shared memory."""
     TH: int
     TW: int
     images_per_cta: int
     R: int
     staged: bool              # halo tiles through shared memory
-    KV: int
-    KU: int
     pitch: int
     block: tuple[int, int, int]   # (TW, TH / R, images_per_cta) threads
     grid: tuple[int, int]     # (row tiles × column tiles, image groups)
@@ -107,9 +104,9 @@ def conv_launch_plan(OH: int, OW: int, B: int, kh: int, kw: int,
     registers, and a staging barrier costs more than it saves. Larger
     kernels read each pixel more often and stage halo tiles in shared
     memory, unless the launch has fewer than ``DIRECT_CTAS`` CTAs (one per
-    SM at most, so no CTA's staging would overlap another's work). Staged
-    halo tiles and taps must fit ``SMEM_BYTES``; a kernel too large for that
-    is staged in chunks of ``KV × KU`` taps.
+    SM at most, so no CTA's staging would overlap another's work) or its
+    halo tiles and taps would not fit ``SMEM_BYTES``: then it reads A
+    directly too.
     """
     es = dtype.itemsize
     many_taps = kh * kw > STAGE_TAPS
@@ -130,31 +127,17 @@ def conv_launch_plan(OH: int, OW: int, B: int, kh: int, kw: int,
         ipc = max(1, min(B, MAX_IMAGES, SPLIT_OUTPUTS // (TW * s * R)))
     TH = R * s
 
-    def shared(ipc, KV, KU):
-        pitch = _round_up((TW + KU - 1) * es, 16) // es
-        taps_off = ipc * (TH + KV - 1) * pitch * es
-        return pitch, taps_off, taps_off + 4 * ipc * KV * KU
-
     grid = (-(-OH // TH) * ncol, -(-B // ipc))
-    if not many_taps or grid[0] * grid[1] < DIRECT_CTAS:
-        return LaunchPlan(
-            TH=TH, TW=TW, images_per_cta=ipc, R=R, staged=False, KV=kh,
-            KU=kw, pitch=0, block=(TW, s, ipc), grid=grid, smem=0,
-            taps_off=0)
-    KV, KU = kh, kw
-    # at one tap per chunk a halo tile is at most 4·MAX_THREADS·R bytes
-    while shared(ipc, KV, KU)[2] > SMEM_BYTES and ipc * KV * KU > 1:
-        if ipc > 1:
-            ipc = -(-ipc // 2)
-        elif KU > 1 and (KV == 1 or TW + KU >= TH + KV):
-            KU = -(-KU // 2)
-        else:
-            KV = -(-KV // 2)
-    pitch, taps_off, smem = shared(ipc, KV, KU)
+    pitch = _round_up((TW + kw - 1) * es, 16) // es
+    taps_off = ipc * (TH + kh - 1) * pitch * es
+    smem = taps_off + 4 * ipc * kh * kw
+    staged = (many_taps and grid[0] * grid[1] >= DIRECT_CTAS
+              and smem <= SMEM_BYTES)
+    if not staged:
+        pitch = smem = taps_off = 0
     return LaunchPlan(
-        TH=TH, TW=TW, images_per_cta=ipc, R=R, staged=True, KV=KV, KU=KU,
-        pitch=pitch, block=(TW, s, ipc), grid=(grid[0], -(-B // ipc)),
-        smem=smem, taps_off=taps_off)
+        TH=TH, TW=TW, images_per_cta=ipc, R=R, staged=staged, pitch=pitch,
+        block=(TW, s, ipc), grid=grid, smem=smem, taps_off=taps_off)
 
 
 class _Args(ctypes.Structure):
@@ -162,8 +145,8 @@ class _Args(ctypes.Structure):
     field order), packed once per signature and passed by address."""
     _fields_ = [(name, ctypes.c_int) for name in (
         "B", "H", "W", "kh", "kw", "OH", "OW", "TH", "TW", "ipc", "R",
-        "staged", "KV", "KU", "pitch", "ncol", "smem", "taps_off", "grid_x",
-        "grid_y", "k_batched", "a_bf16", "k_bf16")]
+        "staged", "pitch", "ncol", "smem", "taps_off", "grid_x", "grid_y",
+        "k_batched", "a_bf16", "k_bf16")]
 
 
 def conv2d_shift_plain(a: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -229,11 +212,9 @@ def _signature(name: str, a_shape, k_shape, a_dtype, k_dtype,
     nb = a_shape[0] if an == 3 else 1
     OH, OW = H - kh + 1, W - kw + 1
     out_shape = tuple(a_shape[:-2]) + (OH, OW)
-    refusal = None
     if tile is not None:
-        bh, _ = tile_shape(a_shape, k_shape, *tile)
-        if OH // bh > 65535:
-            refusal = f"{OH // bh} tile rows exceed the kernel's grid"
+        tile_shape(a_shape, k_shape, *tile)
+    refusal = None
     if max(H * W, nb) >= 1 << 31 or nb > 65535:
         refusal = (f"conv shape {(nb, H, W)} exceeds the kernel's index "
                    f"range")
@@ -241,9 +222,9 @@ def _signature(name: str, a_shape, k_shape, a_dtype, k_dtype,
         return _Signature(out_shape, 0, refusal, None, 0)
     plan = conv_launch_plan(OH, OW, nb, kh, kw, a_dtype)
     args = _Args(nb, H, W, kh, kw, OH, OW, plan.TH, plan.TW,
-                 plan.images_per_cta, plan.R, int(plan.staged), plan.KV,
-                 plan.KU, plan.pitch, -(-OW // plan.TW), plan.smem,
-                 plan.taps_off, *plan.grid, int(kn == 3),
+                 plan.images_per_cta, plan.R, int(plan.staged), plan.pitch,
+                 -(-OW // plan.TW), plan.smem, plan.taps_off, *plan.grid,
+                 int(kn == 3),
                  int(a_dtype == torch.bfloat16),
                  int(k_dtype == torch.bfloat16))
     return _Signature(out_shape, nb * OH * OW, None, args,
@@ -270,9 +251,10 @@ def _conv(wrapper, a: torch.Tensor, k: torch.Tensor, tile=None):
             return _conv(wrapper, a, k, tile)
     if sig.refusal:
         raise ValueError(sig.refusal)
-    # the current card (just checked) by name, and its stream by index: the
-    # cheapest public forms (scripts/conv_wrapper_host.py times them)
-    out = torch.empty(sig.out_shape, dtype=torch.float32, device="cuda")
+    # the output on a's card, the current one (just checked), and its stream
+    # by index: the cheapest public forms (chip_smoke.py's conv_host record
+    # times the steps)
+    out = a.new_empty(sig.out_shape, dtype=torch.float32)
     if sig.n_out:
         err = _entries()[0](a.data_ptr(), k.data_ptr(), out.data_ptr(),
                             sig.args_addr,

@@ -3,16 +3,16 @@
 ``conv2d_shift`` and ``conv2d_shift_tiled`` run one CUDA kernel whose CTA
 tiling :func:`conv_launch_plan` chooses for the H100 in Python, so the CPU
 tests hold the plan to its promises: the CTA tiles cover every output once,
-the halo tiles and taps of every staged chunk fit the shared memory a block
-gets without an opt-in, and a launch of at least 132·512 outputs has at
-least 132 CTAs. A numpy walk of the kernel's index arithmetic (staging by
-rows, the four-row register strip, chunked taps), with unstaged shared
-memory set to NaN, checks that every output is computed from staged values
-only. The wrappers keep every rejection they had. The ``cuda`` tests hold
-the kernel to its plain version on the card at the shapes the redesign
+staged halo tiles and taps fit the shared memory a block gets without an
+opt-in (a kernel too large for that reads A directly), and a launch of at
+least 132·512 outputs has at least 132 CTAs. A numpy walk of the kernel's
+index arithmetic (staging by rows, the register strip), with unstaged
+shared memory set to NaN, checks that every output is computed from staged
+values only. The wrappers keep every rejection they had. The ``cuda`` tests
+hold the kernel to its plain version on the card at the shapes the redesign
 stresses (many small images, 256×256 reference tiles, odd widths, kh ≠ kw,
-bf16/f32 mixes, outputs smaller than one CTA tile, chunked taps) and skip
-without one. Integer-valued inputs are exact; float inputs keep the
+bf16/f32 mixes, outputs smaller than one CTA tile, halos past 48 KB) and
+skip without one. Integer-valued inputs are exact; float inputs keep the
 reference's tolerances (f32 rtol/atol 1e-5, bf16 rtol 3e-2 / atol 0.5).
 """
 import ctypes
@@ -91,20 +91,19 @@ def test_launch_plan_tiles_fit_and_fill_the_card(OH, OW, B, kh, kw, bf16):
     assert p.grid == (-(-OH // p.TH) * -(-OW // p.TW),
                       -(-B // p.images_per_cta))
     assert (p.grid[1] - 1) * p.images_per_cta < B
-    # up to 3×3 taps, or fewer CTAs than SMs, read A directly
+    # shared memory: halo rows 16-byte aligned, taps after them
+    pitch = -(-(p.TW + kw - 1) * es // 16) * 16 // es
+    halo = p.images_per_cta * (p.TH + kh - 1) * pitch * es
+    fits = halo + 4 * p.images_per_cta * kh * kw <= cs.SMEM_BYTES
+    # up to 3×3 taps, fewer CTAs than SMs, or a halo tile that does not fit
+    # what a block gets without an opt-in: read A directly
     assert p.staged == (kh * kw > cs.STAGE_TAPS
-                        and _ctas(p) >= cs.DIRECT_CTAS)
+                        and _ctas(p) >= cs.DIRECT_CTAS and fits)
     if not p.staged:
-        assert (p.smem, p.KV, p.KU) == (0, kh, kw)
+        assert (p.smem, p.pitch, p.taps_off) == (0, 0, 0)
     else:
-        # shared memory: halo rows 16-byte aligned, taps after them, all
-        # inside what a block gets without an opt-in
-        assert (p.pitch * es) % 16 == 0 and p.pitch >= p.TW + p.KU - 1
-        assert 1 <= p.KV <= kh and 1 <= p.KU <= kw
-        halo = p.images_per_cta * (p.TH + p.KV - 1) * p.pitch * es
-        assert p.taps_off == halo and p.taps_off % 16 == 0
-        assert p.smem == halo + 4 * p.images_per_cta * p.KV * p.KU
-        assert p.smem <= cs.SMEM_BYTES
+        assert p.pitch == pitch and p.taps_off == halo
+        assert p.smem == halo + 4 * p.images_per_cta * kh * kw
     # at least one CTA per SM once there are 132·512 outputs
     if B * OH * OW >= 132 * 512:
         assert _ctas(p) >= 132
@@ -128,26 +127,30 @@ def test_launch_plan_at_the_paths_shapes(OH, OW, B, want, k):
     p = conv_launch_plan(OH, OW, B, k, k, torch.float32)
     assert (p.TH, p.TW, p.images_per_cta, p.R, p.staged, p.threads,
             _ctas(p)) == want
-    assert (p.KV, p.KU) == (k, k) and p.smem < 16 * 1024
+    assert p.smem < 16 * 1024
 
 
-def test_launch_plan_chunks_kernels_too_large_for_one_halo():
-    p = conv_launch_plan(8, 5000, 4, 3, 20000, torch.bfloat16)
-    assert p.staged and _ctas(p) >= cs.DIRECT_CTAS
-    assert p.KU < 20000 and p.KV == 3 and p.smem <= cs.SMEM_BYTES
-    p = conv_launch_plan(64, 64, 200, 1500, 1500, torch.float32)
-    assert p.staged and p.KV < 1500 and p.KU < 1500
-    assert p.smem <= cs.SMEM_BYTES
+@pytest.mark.parametrize("OH,OW,B,kh,kw,dtype", [
+    (8, 5000, 4, 3, 20000, torch.bfloat16),    # a 40 KB halo row
+    (64, 64, 200, 1500, 1500, torch.float32),
+    (1016, 1, 300, 9, 9, torch.float32),    # 1024-row one-column halos
+])
+def test_launch_plan_reads_kernels_too_large_to_stage_directly(OH, OW, B, kh,
+                                                               kw, dtype):
+    p = conv_launch_plan(OH, OW, B, kh, kw, dtype)
+    assert kh * kw > cs.STAGE_TAPS and _ctas(p) >= cs.DIRECT_CTAS
+    assert not p.staged and p.smem == 0
 
 
 def _walk_kernel(a, k, p):
-    """The kernel's arithmetic in numpy, CTA by CTA: stage each chunk's halo
-    rows and taps into NaN-filled shared arrays laid out as the plan says,
-    accumulate each thread's four-row strip, store the valid rows."""
+    """The kernel's arithmetic in numpy, CTA by CTA: stage the halo rows
+    and taps into NaN-filled shared arrays laid out as the plan says (or
+    read A directly), accumulate each thread's strip, store the valid
+    rows."""
     B, H, W = a.shape
     kh, kw = k.shape[-2:]
     OH, OW = H - kh + 1, W - kw + 1
-    ncol, img = -(-OW // p.TW), (p.TH + p.KV - 1) * p.pitch
+    ncol, img = -(-OW // p.TW), (p.TH + kh - 1) * p.pitch
     c, s, i = _threads(p)
     out = np.full((B, OH, OW), np.nan)
     for bx in range(p.grid[0]):
@@ -169,30 +172,24 @@ def _walk_kernel(a, k, p):
                             x = a[np.where(ok, b0 + i, 0), np.where(ok, y, 0),
                                   np.where(ok, x0 + c + h, 0)]
                             acc[:, r] += np.where(ok, x * tap, 0)
-            for v0 in range(0, kh, p.KV) if p.staged else ():
-                kv = min(p.KV, kh - v0)
-                for u0 in range(0, kw, p.KU):
-                    ku = min(p.KU, kw - u0)
-                    tile = np.full(p.images_per_cta * img, np.nan)
-                    taps = np.full(p.images_per_cta * p.KV * p.KU, np.nan)
-                    for ii in range(nimg):
-                        for hr in range(th + kv - 1):
-                            d = ii * img + hr * p.pitch
-                            tile[d:d + tw + ku - 1] = a[
-                                b0 + ii, y0 + v0 + hr, x0 + u0:x0 + u0 + tw
-                                + ku - 1]
-                        kb = b0 + ii if len(k) > 1 else 0
-                        taps[ii * kv * ku:(ii + 1) * kv * ku] = k[
-                            kb, v0:v0 + kv, u0:u0 + ku].ravel()
-                    col = np.where(live, i * img + s * p.R * p.pitch + c, 0)
-                    tp = np.where(live, i if len(k) > 1 else 0, 0) * kv * ku
-                    for h in range(ku):
-                        for j in range(p.R + kv - 1):
-                            x = tile[col + j * p.pitch + h]
-                            for r in range(max(0, j - kv + 1),
-                                           min(p.R, j + 1)):
-                                acc[:, r] += np.where(
-                                    live, x * taps[tp + (j - r) * ku + h], 0)
+            if p.staged:
+                tile = np.full(p.images_per_cta * img, np.nan)
+                taps = np.full(p.images_per_cta * kh * kw, np.nan)
+                for ii in range(nimg):
+                    for hr in range(th + kh - 1):
+                        d = ii * img + hr * p.pitch
+                        tile[d:d + tw + kw - 1] = a[
+                            b0 + ii, y0 + hr, x0:x0 + tw + kw - 1]
+                    kb = b0 + ii if len(k) > 1 else 0
+                    taps[ii * kh * kw:(ii + 1) * kh * kw] = k[kb].ravel()
+                col = np.where(live, i * img + s * p.R * p.pitch + c, 0)
+                tp = np.where(live, i if len(k) > 1 else 0, 0) * kh * kw
+                for h in range(kw):
+                    for j in range(p.R + kh - 1):
+                        x = tile[col + j * p.pitch + h]
+                        for r in range(max(0, j - kh + 1), min(p.R, j + 1)):
+                            acc[:, r] += np.where(
+                                live, x * taps[tp + (j - r) * kw + h], 0)
             for r in range(p.R):
                 keep = live & (c < tw) & (s * p.R + r < th)
                 out[b0 + i[keep], y0 + s[keep] * p.R + r,
@@ -209,8 +206,8 @@ def _walk_kernel(a, k, p):
     (2, 45, 70, 3, 3, True, {"TALL_STRIP_OUTPUTS": 0}),   # 8-row strips
     (2, 45, 70, 3, 3, True, {"TALL_STRIP_OUTPUTS": 0, **STAGED}),
     (2, 30, 40, 5, 5, False, {}),       # 25 taps, few CTAs: direct
-    (2, 14, 40, 7, 9, True, {"SMEM_BYTES": 1500, **STAGED}),  # chunks
-    (1, 12, 90, 5, 60, False, {"SMEM_BYTES": 1500, **STAGED}),
+    (2, 14, 40, 7, 9, True, {"SMEM_BYTES": 1500, **STAGED}),  # too large
+    (1, 12, 90, 5, 60, False, {"SMEM_BYTES": 1500, **STAGED}),  # to stage
 ])
 def test_kernel_walk_reads_only_staged_values(monkeypatch, B, H, W, kh, kw,
                                               per_image, knobs):
@@ -221,9 +218,9 @@ def test_kernel_walk_reads_only_staged_values(monkeypatch, B, H, W, kh, kw,
         p = conv_launch_plan(H - kh + 1, W - kw + 1, B, kh, kw, torch.float32)
     finally:
         conv_launch_plan.cache_clear()
-    assert p.staged == (knobs.get("STAGE_TAPS") == 0)
-    if "SMEM_BYTES" in knobs:
-        assert p.KV * p.KU < kh * kw and p.smem <= knobs["SMEM_BYTES"]
+    # halo tiles past SMEM_BYTES are read directly
+    assert p.staged == (knobs.get("STAGE_TAPS") == 0
+                        and "SMEM_BYTES" not in knobs)
     assert p.R == (cs.TALL_STRIP if "TALL_STRIP_OUTPUTS" in knobs
                    and not p.staged else cs.STRIP)
     rng = np.random.default_rng(B * H + W)
@@ -316,7 +313,7 @@ CARD = [   # (label, a shape, k shape, a dtype, k dtype, integer inputs)
     ("bf16 k", (5, 33, 31), (5, 3, 3), "f32", "bf16", False),
     ("under one tile", (3, 6, 7), (3, 3, 3), "f32", "f32", False),
     ("single output", (4, 4), (4, 4), "f32", "f32", False),
-    ("chunked taps", (4, 8, 20000), (2, 15000), "f32", "f32", True),
+    ("halo past 48 KB", (4, 8, 20000), (2, 15000), "f32", "f32", True),
 ]
 
 
@@ -346,9 +343,8 @@ def test_cuda_conv_matches_plain_at_design_shapes(cuda, mode, label, ashape,
     else:
         a = torch.randn(ashape, generator=g, device=cuda).to(dts[adt])
         k = torch.randn(kshape, generator=g, device=cuda).to(dts[kdt])
-    if label == "chunked taps" and mode != "direct":
-        p = conv_launch_plan(7, 5001, 4, 2, 15000, torch.float32)
-        assert p.staged and p.KU < 15000
+    if label == "halo past 48 KB":     # read directly in every mode
+        assert not conv_launch_plan(7, 5001, 4, 2, 15000, torch.float32).staged
     before = conv2d_shift.launches
     got = conv2d_shift(a, k)
     assert conv2d_shift.launches == before + 1
