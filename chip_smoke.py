@@ -13,10 +13,13 @@ each printing one JSON line per record:
 2. kernels — every kernel against its plain PyTorch version on the card, at
              the main path's shape (integer-valued inputs: exact, tolerance
              0) and at the reference's test shapes (float inputs, the
-             reference's tolerances), and for the float convs at shapes that
+             reference's tolerances), for the float convs at shapes that
              stress the redesigned tiling (1000 small images, a 514×514
              image with 256×256 reference tiles, odd widths, kh ≠ kw, bf16,
-             5×5 kernels whose halo tiles are staged);
+             5×5 kernels whose halo tiles are staged), and for the two
+             matvec kernels at the other served buckets, a bf16/f32 mix, an
+             M that is not a multiple of the plan's rows a CTA and views at
+             odd offsets;
              the compared call's launch count; kernel, plain and library
              times from CUDA events — per call, and for the kernel and the
              library also per launch replayed from a CUDA graph, without the
@@ -27,9 +30,11 @@ each printing one JSON line per record:
              ±1 operands (binary_matmul), ``torch.mv`` / ``torch.matmul``
              (splitk_matvec), ``F.conv2d`` with ``groups=B`` (the convs) and
              ``F.conv2d`` of the unpacked ±1 floats (binary_conv2d); TF32 is
-             off for both matmul and cuDNN. For ``conv2d_shift`` at the
-             served shape, also the host time of each step of its wrapper
-             (``time.perf_counter_ns`` over 10⁴ calls each).
+             off for both matmul and cuDNN. For ``conv2d_shift``,
+             ``splitk_matvec`` and ``binary_matmul`` at their served shapes,
+             also the host time of each step of the wrapper (records
+             ``conv_host`` and ``matvec_host``; ``time.perf_counter_ns``
+             over 10⁴ calls each).
 3. engine  — ``BinaryMatvecPlan(1024, 416)`` (565 cycles) at B ∈ {1, 20,
              33}, ``MatvecPlan(1024, 39, 8)`` (9474 cycles) at B ∈ {1, 27}
              and ``ConvPlan(64, 8, 3, 8)`` (9800 cycles; one kernel per
@@ -217,30 +222,55 @@ def _nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def at_offset(torch, t, offset: int):
+    """A contiguous copy of ``t`` that starts ``offset`` elements past a
+    16-byte boundary (a view into a larger buffer)."""
+    flat = t.new_empty(offset + t.numel())
+    flat[offset:] = t.reshape(-1)
+    view = flat[offset:].view(t.shape)
+    check(view.data_ptr() % 16 == offset * t.element_size() % 16
+          and torch.equal(view, t), "at_offset")
+    return view
+
+
+def binary_operands(torch, seed, B, M, N, Kw):
+    """±1 floats A (M, 32·Kw) and B (N, 32·Kw), with a leading batch axis
+    when B > 0, and their packed words."""
+    from repro_torch.kernels.ref import pack_bits
+    rng = np.random.default_rng(seed)
+    lead = (B,) if B else ()
+    af = torch.from_numpy(rng.choice([-1.0, 1.0], size=lead + (
+        M, 32 * Kw)).astype(np.float32)).cuda()
+    bf = torch.from_numpy(rng.choice([-1.0, 1.0], size=lead + (
+        N, 32 * Kw)).astype(np.float32)).cuda()
+    return af, bf, pack_bits(af), pack_bits(bf)
+
+
 def rows_binary_matmul(torch, rate):
     from repro_torch.kernels.binary_matmul import (binary_matmul,
                                                    binary_matmul_plain)
-    from repro_torch.kernels.ref import pack_bits
-    # (B, M, N, Kw): the main path's shape first — 20 tiles of 1024 rows,
-    # one 416-bit x per tile packed to 13 words — then the reference test
-    # shapes (M, N, K) = (8, 8, 32), (128, 128, 256), (64, 256, 512)
+    # (B, M, N, Kw, word offset of A): the main path's shape first — 20
+    # tiles of 1024 rows, one 416-bit x per tile packed to 13 words — then
+    # the reference test shapes (M, N, K) = (8, 8, 32), (128, 128, 256),
+    # (64, 256, 512); the other two served buckets (1024×384 and 300×500 ±1
+    # requests), an M that is not a multiple of the plan's 128 rows a CTA,
+    # and the main path's A at an odd word offset
     rows = []
-    for i, (B, M, N, Kw) in enumerate([(20, 1024, 1, 13), (0, 8, 8, 1),
-                                       (0, 128, 128, 8), (0, 64, 256, 16)]):
-        rng = np.random.default_rng(i)
-        lead = (B,) if B else ()
-        af = torch.from_numpy(rng.choice([-1.0, 1.0], size=lead + (
-            M, 32 * Kw)).astype(np.float32)).cuda()
-        bf = torch.from_numpy(rng.choice([-1.0, 1.0], size=lead + (
-            N, 32 * Kw)).astype(np.float32)).cuda()
-        ap, bp = pack_bits(af), pack_bits(bf)
+    for i, (B, M, N, Kw, off) in enumerate([
+            (20, 1024, 1, 13, 0), (0, 8, 8, 1, 0), (0, 128, 128, 8, 0),
+            (0, 64, 256, 16, 0), (2, 1024, 1, 13, 0), (2, 512, 1, 13, 0),
+            (20, 1000, 1, 13, 0), (20, 1024, 1, 13, 1)]):
+        af, bf, ap, bp = binary_operands(torch, i, B, M, N, Kw)
+        if off:
+            ap = at_offset(torch, ap, off)
         dense = torch.matmul(af, bf.transpose(-1, -2)).to(torch.int32)
         check(torch.equal(binary_matmul(ap, bp), dense),
               f"binary_matmul != the dense ±1 product at {(B, M, N, Kw)}")
         nb = max(B, 1)
         rows.append(kernel_row(
-            torch, "binary_matmul", [B, M, N, Kw], binary_matmul,
-            binary_matmul_plain,
+            torch, "binary_matmul",
+            [B, M, N, Kw] + ([f"offset {off}"] if off else []),
+            binary_matmul, binary_matmul_plain,
             lambda af=af, bf=bf: torch.matmul(af, bf.transpose(-1, -2)),
             (ap, bp), _nbytes(ap, bp, dense),
             nb * M * N * (3 * Kw + 1),   # xor, popc, add per word; epilogue
@@ -266,10 +296,34 @@ def rows_splitk(torch):
                       torch.randn((M, K), generator=g, device="cuda").to(dt),
                       torch.randn((K,), generator=g, device="cuda").to(dt),
                       (2e-2, 0.5) if bf16 else (1e-5, 1e-3)))
+
+    def ints(shape, hi=256, dtype=torch.float32):
+        return torch.randint(0, hi, shape, generator=g,
+                             device="cuda").to(dtype)
+
+    # the 300×500 request's bucket (14 tiles of 512 rows); a bf16 A with an
+    # f32 x at K 39 (8-bit integers are exact in bf16); an M that is not a
+    # multiple of the plan's 128 rows a CTA; odd-offset views of the served
+    # shape (short rows) and of a long-row shape
+    cases += [
+        ([14, 512, 39, "f32"], ints((14, 512, 39)), ints((14, 39)), None),
+        ([27, 1024, 39, "bf16 a, f32 x"], ints((27, 1024, 39),
+                                               dtype=torch.bfloat16),
+         ints((27, 39)), None),
+        ([27, 1000, 39, "f32"], ints((27, 1000, 39)), ints((27, 39)), None),
+        ([27, 1024, 39, "f32 offset 1"],
+         at_offset(torch, ints((27, 1024, 39)), 1),
+         at_offset(torch, ints((27, 39)), 3), None),
+        ([0, 1024, 4096, "bf16 offset 3"],
+         at_offset(torch, ints((1024, 4096), 16, torch.bfloat16), 3),
+         at_offset(torch, ints((4096,), 16, torch.bfloat16), 1), None)]
     for shape, a, x, tol in cases:
         y = a[..., 0].float()
-        lib = ((lambda a=a, x=x: torch.matmul(a, x[..., None]))
-               if a.ndim == 3 else (lambda a=a, x=x: torch.mv(a, x)))
+        # torch.matmul takes one dtype: the mix's x as bf16 (its 8-bit
+        # integers are exact there)
+        xl = x.to(a.dtype)
+        lib = ((lambda a=a, x=xl: torch.matmul(a, x[..., None]))
+               if a.ndim == 3 else (lambda a=a, x=xl: torch.mv(a, x)))
         rows.append(kernel_row(
             torch, "splitk_matvec", shape, splitk_matvec,
             splitk_matvec_plain, lib, (a, x),
@@ -301,37 +355,74 @@ def per_call_us(torch, fn, calls: int = 10_000) -> float:
     return (t1 - t0) / calls / 1e3
 
 
-def conv_host_steps(torch, a, k) -> None:
-    """Host time of each step the ``conv2d_shift`` wrapper makes on CUDA
-    operands, alone, beside the whole call and the library yardstick."""
-    from repro_torch.kernels import conv2d_shift as cs
-    entry = cs._entries()[0]
-    sig = cs._signature("conv2d_shift", a.shape, k.shape, a.dtype, k.dtype,
-                        None)
-    out = a.new_empty(sig.out_shape, dtype=torch.float32)
+def host_steps(torch, wrapper, module, signature, a, b, library) -> dict:
+    """Host µs per call of each step the ``module.<wrapper>`` wrapper makes
+    on CUDA operands (``kernels.launch``; ``signature`` its cached
+    signature lookup), alone, beside the whole call and the library
+    yardstick."""
+    from repro_torch import kernels
+    sig = signature()
+    entry = kernels.entry(module.SOURCE, module.SYMBOL)
+    out = a.new_empty(sig.out_shape, dtype=sig.out_dtype)
     stream = torch.cuda.current_stream(0).cuda_stream
-    before = cs.conv2d_shift.launches
+    before = wrapper.launches
     steps = {
-        "signature": lambda: cs._signature(
-            "conv2d_shift", a.shape, k.shape, a.dtype, k.dtype, None),
-        "device_checks": lambda: (a.is_cuda and k.is_cuda
-                                  and k.get_device() == a.get_device()
+        "signature": signature,
+        "device_checks": lambda: (a.is_cuda and b.is_cuda
+                                  and b.get_device() == a.get_device()
                                   and a.is_contiguous()
-                                  and k.is_contiguous()),
+                                  and b.is_contiguous()),
         "current_device":
             lambda: a.get_device() != torch.cuda.current_device(),
-        "new_empty": lambda: a.new_empty(sig.out_shape, dtype=torch.float32),
+        "new_empty": lambda: a.new_empty(sig.out_shape, dtype=sig.out_dtype),
         "stream": lambda: torch.cuda.current_stream(0).cuda_stream,
-        "data_ptrs": lambda: (a.data_ptr(), k.data_ptr(), out.data_ptr()),
-        "ctypes_launch": lambda: entry(a.data_ptr(), k.data_ptr(),
+        "data_ptrs": lambda: (a.data_ptr(), b.data_ptr(), out.data_ptr()),
+        "ctypes_launch": lambda: entry(a.data_ptr(), b.data_ptr(),
                                        out.data_ptr(), sig.args_addr, stream),
-        "call": lambda: cs.conv2d_shift(a, k),
-        "library": _grouped_conv(torch, a, k),
+        "call": lambda: wrapper(a, b),
+        "library": library,
         "loop": lambda: None,
     }
+    us = {n: per_call_us(torch, fn) for n, fn in steps.items()}
+    wrapper.launches = before
+    return us
+
+
+def conv_host_steps(torch, a, k) -> None:
+    """Host time of each step the ``conv2d_shift`` wrapper makes on CUDA
+    operands, at the served shape."""
+    from repro_torch.kernels import conv2d_shift as cs
     emit("conv_host", kernel="conv2d_shift", shape=list(a.shape),
-         us_per_call={n: per_call_us(torch, fn) for n, fn in steps.items()})
-    cs.conv2d_shift.launches = before
+         us_per_call=host_steps(
+             torch, cs.conv2d_shift, cs,
+             lambda: cs._signature("conv2d_shift", a.shape, k.shape, a.dtype,
+                                   k.dtype, None),
+             a, k, _grouped_conv(torch, a, k)))
+
+
+def matvec_host_steps(torch) -> None:
+    """Host time of each step of the ``splitk_matvec`` and
+    ``binary_matmul`` wrappers at their served shapes (27×1024×39 f32 and
+    20×1024×13 words against one x each), in one record."""
+    from repro_torch.kernels import binary_matmul as bm
+    from repro_torch.kernels import splitk_matvec as sm
+    g = torch.Generator(device="cuda").manual_seed(13)
+    a = torch.randint(0, 256, (27, 1024, 39), generator=g,
+                      device="cuda").float()
+    x = torch.randint(0, 256, (27, 39), generator=g, device="cuda").float()
+    af, bf, ap, bp = binary_operands(torch, 14, 20, 1024, 1, 13)
+    emit("matvec_host", shapes={"splitk_matvec": [27, 1024, 39],
+                                "binary_matmul": [20, 1024, 1, 13]},
+         us_per_call={
+             "splitk_matvec": host_steps(
+                 torch, sm.splitk_matvec, sm,
+                 lambda: sm._signature(a.shape, x.shape, a.dtype, x.dtype),
+                 a, x, lambda: torch.matmul(a, x[..., None])),
+             "binary_matmul": host_steps(
+                 torch, bm.binary_matmul, bm,
+                 lambda: bm._signature(ap.shape, bp.shape, ap.dtype,
+                                       bp.dtype),
+                 ap, bp, lambda: torch.matmul(af, bf.transpose(-1, -2)))})
 
 
 def rows_conv(torch):
@@ -487,8 +578,10 @@ def phase_kernels(torch, rate) -> dict:
     (the main-path row first)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return {"binary_matmul": rows_binary_matmul(torch, rate),
-            "splitk_matvec": rows_splitk(torch),
+    rows = {"binary_matmul": rows_binary_matmul(torch, rate),
+            "splitk_matvec": rows_splitk(torch)}
+    matvec_host_steps(torch)
+    return {**rows,
             "conv2d_shift": rows_conv(torch),
             "conv2d_shift_tiled": rows_tiled(torch),
             "binary_conv2d": rows_binary_conv(torch, rate)}
@@ -668,6 +761,10 @@ def phase_serve() -> dict:
             for n in ("binary_matmul", "splitk_matvec", "conv2d_shift"):
                 check(launches[n] > 0, f"the kernels service launched no "
                       f"{n}")
+            # one launch per bucket: three ±1 buckets, two 8-bit matvec
+            check(launches["binary_matmul"] == 3
+                  and launches["splitk_matvec"] == 2,
+                  f"the kernels service launched {launches}")
         for name, (kind, args, tiles, cycles, depth) in reqs.items():
             t = tickets[name]
             check(t.n_units == tiles and t.reduce_depth == depth

@@ -77,6 +77,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "row_stage.cuh"
+
 // Launch parameters, computed and cached by the Python wrapper
 // (kernels/conv2d_shift.py::_Args, same field order, all int32).
 struct ConvArgs {
@@ -100,17 +102,8 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
-               "l"(src), "n"(N)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
+using row_stage::cp_async;
+using row_stage::cp_async_wait_all;
 
 // Stage `nrows` halo rows of n elements each, row r from src to dst as
 // locate(r, src, dst) sets them, src aligned to 2^lvw bytes and dst to 16.

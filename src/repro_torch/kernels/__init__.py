@@ -15,6 +15,15 @@ Each is CUDA C++ for sm_90a in place of a Pallas kernel of
                           (all three ``conv2d_shift.py``,
                           ``csrc/conv2d_shift.cu``)
 
+The wrappers share one host path (:func:`launch`): the checks and values
+that depend only on shapes and dtypes are computed once per signature and
+cached (:class:`Signature`, with the launch arguments packed in a
+``ctypes.Structure``), so a call on CUDA tensors makes a few device and
+layout checks, one ``new_empty``, one stream read and one ctypes call with
+three data pointers, the packed arguments' address and the stream.
+:func:`staged_rows` is the launch plan shared by the two kernels that stage
+whole short rows in shared memory (``splitk_matvec``, ``binary_matmul``).
+
 ``ops.py`` holds the public wrappers (``matvec``, ``conv2d``,
 ``conv2d_binary``, ``binary_dense``, ``as_packed_words``); ``ref.py`` the
 plain oracles. Both are exported here. Each kernel function lives in the
@@ -39,6 +48,9 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import NamedTuple
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -60,8 +72,10 @@ def _nvcc() -> str:
 
 def library_path(source: str) -> Path:
     """Where ``csrc/<source>`` builds to: the name carries a hash of the
-    source bytes and the flags."""
+    source bytes, the headers of ``csrc/`` and the flags."""
     h = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
 
@@ -92,8 +106,127 @@ def load_library(source: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(library_path(source)))
 
 
+@functools.cache
+def entry(source: str, symbol: str):
+    """A kernel's C entry point ``symbol`` in ``csrc/<source>``, built and
+    loaded at first use: ``(in0, in1, out, args, stream)``, all
+    ``c_void_p`` (``args`` the packed launch arguments' address)."""
+    fn = getattr(load_library(source), symbol)
+    fn.argtypes = [ctypes.c_void_p] * 5
+    fn.restype = ctypes.c_int
+    return fn
+
+
+class Signature(NamedTuple):
+    """Everything a call needs that depends only on the operands' shapes
+    and dtypes, computed once per signature by each kernel module."""
+    out_shape: tuple
+    out_dtype: torch.dtype
+    n_out: int
+    refusal: str | None       # why the kernel cannot take it (CUDA only)
+    args: ctypes.Structure | None   # None when there is nothing to launch
+    args_addr: int
+
+
+def launch(wrapper, sig: Signature, a: torch.Tensor, b: torch.Tensor,
+           source: str, symbol: str):
+    """The wrappers' shared path after the cached signature: ``None`` for
+    CPU operands (the caller runs its plain version); for CUDA operands the
+    device and layout checks, then one launch of ``symbol`` on the current
+    stream, counted on ``wrapper.launches``. Raises for operands on two
+    devices, on another device type, not contiguous, or refused by the
+    kernel (``sig.refusal``), and when CUDA refuses the launch."""
+    dev = a.get_device()
+    if not (a.is_cuda and b.is_cuda and b.get_device() == dev):
+        if a.device != b.device:
+            raise ValueError(f"operands on {a.device} and {b.device}")
+        if a.device.type != "cpu":
+            raise ValueError(f"{wrapper.__name__} runs on CUDA or the CPU, "
+                             f"not {a.device}")
+        return None
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError(f"{wrapper.__name__} takes contiguous operands")
+    if dev != torch.cuda.current_device():
+        with torch.cuda.device(dev):    # launch on the operands' card
+            return launch(wrapper, sig, a, b, source, symbol)
+    if sig.refusal:
+        raise ValueError(sig.refusal)
+    # the output on a's card, the current one (just checked), and its stream
+    # by index: the cheapest public forms (chip_smoke.py's conv_host and
+    # matvec_host records time the steps)
+    out = a.new_empty(sig.out_shape, dtype=sig.out_dtype)
+    if sig.n_out:
+        err = entry(source, symbol)(a.data_ptr(), b.data_ptr(),
+                                    out.data_ptr(), sig.args_addr,
+                                    torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{wrapper.__name__} launch failed: CUDA "
+                               f"error {err}")
+        wrapper.launches += 1
+    return out
+
+
+# The row-staging plan's constants, for the H100 SXM.
+MIN_CTAS = 132            # one CTA per SM
+MAX_ROWS = 128            # rows a CTA stages
+SMEM_BYTES = 48 * 1024    # dynamic shared memory a block gets with no opt-in
+
+
+class RowPlan(NamedTuple):
+    """One launch of a kernel that stages whole rows: ``rows`` consecutive
+    rows of one batch entry per CTA, ``lanes`` threads reducing each row;
+    the rows' span starts in shared memory at offset 0 (plus the span's
+    misalignment), the vector at ``x_off`` bytes."""
+    rows: int
+    threads: int
+    lanes: int
+    rot: int                  # each row's walk starts at its own column
+    grid: tuple[int, int]     # (CTAs per batch entry, batch entries)
+    smem: int
+    x_off: int
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def span_bytes(rows: int, K: int, itemsize: int) -> int:
+    """Shared bytes for ``rows`` rows of ``K`` elements staged as one span:
+    the span's misalignment (up to 15 bytes) ahead of it, whole 16 bytes."""
+    return _round_up(16 - itemsize + rows * K * itemsize, 16)
+
+
+def staged_rows(B: int, M: int, K: int, itemsize: int,
+                x_bytes: int) -> RowPlan | None:
+    """The row-staging plan over ``B`` batch entries of ``M`` rows of ``K``
+    elements of ``itemsize`` bytes, with an ``x_bytes`` vector staged beside
+    them; ``None`` when one row and the vector do not fit ``SMEM_BYTES``.
+
+    Rows per CTA: the most, a power of two up to ``MAX_ROWS``, whose span
+    and vector fit ``SMEM_BYTES`` and that still give ``min(MIN_CTAS,
+    B·M)`` CTAs, so a launch of at least 132 rows fills every SM. A CTA has
+    ``max(32, rows)`` threads: one per row, or a group of ``lanes`` (a power
+    of two) per row when the CTA has fewer than 32 rows. With an even ``K``
+    a row's lanes start at its own column (``rot``), so the threads of a
+    warp read distinct banks; an odd row stride does that by itself."""
+    x_off = span_bytes(1, K, itemsize)
+    if x_off + x_bytes > SMEM_BYTES:
+        return None
+    want = min(MIN_CTAS, B * M)
+    R = MAX_ROWS
+    while R > 1 and (span_bytes(R, K, itemsize) + x_bytes > SMEM_BYTES
+                     or -(-M // R) * B < want):
+        R //= 2
+    threads = max(32, R)
+    x_off = span_bytes(R, K, itemsize)
+    return RowPlan(rows=R, threads=threads, lanes=threads // R,
+                   rot=int(K > 0 and K % 2 == 0), grid=(-(-M // R), B),
+                   smem=x_off + x_bytes, x_off=x_off)
+
+
 # after load_library: ops and ref import the kernel modules, which import it
 from . import ops, ref  # noqa: E402
 
-__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build", "library_path",
-           "load_library", "ops", "ref"]
+__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "RowPlan", "Signature",
+           "build", "entry", "launch", "library_path", "load_library", "ops",
+           "ref", "span_bytes", "staged_rows"]

@@ -26,7 +26,8 @@ card by :func:`conv_launch_plan`, not taken from the reference's ``bh×bw``
 (a TPU block size). The host path is lean: everything that depends only on
 the shapes and dtypes — the checks, the output shape and the packed launch
 arguments — is computed once per signature and cached, so a call makes a
-few device and layout checks, one ``torch.empty`` and one ctypes call.
+few device and layout checks, one ``new_empty`` and one ctypes call
+(``kernels.launch``, shared with ``splitk_matvec`` and ``binary_matmul``).
 """
 from __future__ import annotations
 
@@ -37,10 +38,11 @@ from typing import NamedTuple
 
 import torch
 
-from . import load_library
+from . import Signature, _round_up, launch, load_library
 from .binary_matmul import popcount32
 
 SOURCE = "conv2d_shift.cu"
+SYMBOL = "matpim_conv2d_shift"
 DTYPES = (torch.float32, torch.bfloat16)
 
 # The launch plan's constants, for the H100 SXM (PERF.md has the times of
@@ -77,10 +79,6 @@ class LaunchPlan(NamedTuple):
     @property
     def threads(self) -> int:
         return math.prod(self.block)
-
-
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
 
 
 @functools.lru_cache(maxsize=1024)
@@ -178,17 +176,9 @@ def tile_shape(a_shape, k_shape, bh: int = 128, bw: int = 128):
     return bh, bw
 
 
-class _Signature(NamedTuple):
-    out_shape: tuple
-    n_out: int
-    refusal: str | None       # why the kernel cannot take it (CUDA only)
-    args: _Args | None        # None when there is nothing to launch
-    args_addr: int
-
-
 @functools.lru_cache(maxsize=256)
 def _signature(name: str, a_shape, k_shape, a_dtype, k_dtype,
-               tile=None) -> _Signature:
+               tile=None) -> Signature:
     """Everything a call needs that depends only on shapes and dtypes,
     checked and computed once: raises ``TypeError`` / ``ValueError`` on
     operands neither version takes (a raise is not cached), else gives the
@@ -219,7 +209,7 @@ def _signature(name: str, a_shape, k_shape, a_dtype, k_dtype,
         refusal = (f"conv shape {(nb, H, W)} exceeds the kernel's index "
                    f"range")
     if refusal or nb * OH * OW == 0:
-        return _Signature(out_shape, 0, refusal, None, 0)
+        return Signature(out_shape, torch.float32, 0, refusal, None, 0)
     plan = conv_launch_plan(OH, OW, nb, kh, kw, a_dtype)
     args = _Args(nb, H, W, kh, kw, OH, OW, plan.TH, plan.TW,
                  plan.images_per_cta, plan.R, int(plan.staged), plan.pitch,
@@ -227,8 +217,8 @@ def _signature(name: str, a_shape, k_shape, a_dtype, k_dtype,
                  int(kn == 3),
                  int(a_dtype == torch.bfloat16),
                  int(k_dtype == torch.bfloat16))
-    return _Signature(out_shape, nb * OH * OW, None, args,
-                      ctypes.addressof(args))
+    return Signature(out_shape, torch.float32, nb * OH * OW, None, args,
+                     ctypes.addressof(args))
 
 
 def _conv(wrapper, a: torch.Tensor, k: torch.Tensor, tile=None):
@@ -236,34 +226,7 @@ def _conv(wrapper, a: torch.Tensor, k: torch.Tensor, tile=None):
     operands (counted on ``wrapper``), or ``None`` for CPU operands."""
     sig = _signature(wrapper.__name__, a.shape, k.shape, a.dtype, k.dtype,
                      tile)
-    dev = a.get_device()
-    if not (a.is_cuda and k.is_cuda and k.get_device() == dev):
-        if a.device != k.device:
-            raise ValueError(f"operands on {a.device} and {k.device}")
-        if a.device.type != "cpu":
-            raise ValueError(f"{wrapper.__name__} runs on CUDA or the CPU, "
-                             f"not {a.device}")
-        return None
-    if not (a.is_contiguous() and k.is_contiguous()):
-        raise ValueError(f"{wrapper.__name__} takes contiguous operands")
-    if dev != torch.cuda.current_device():
-        with torch.cuda.device(dev):    # launch on the operands' card
-            return _conv(wrapper, a, k, tile)
-    if sig.refusal:
-        raise ValueError(sig.refusal)
-    # the output on a's card, the current one (just checked), and its stream
-    # by index: the cheapest public forms (chip_smoke.py's conv_host record
-    # times the steps)
-    out = a.new_empty(sig.out_shape, dtype=torch.float32)
-    if sig.n_out:
-        err = _entries()[0](a.data_ptr(), k.data_ptr(), out.data_ptr(),
-                            sig.args_addr,
-                            torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"{wrapper.__name__} launch failed: CUDA "
-                               f"error {err}")
-        wrapper.launches += 1
-    return out
+    return launch(wrapper, sig, a, k, SOURCE, SYMBOL)
 
 
 def conv2d_shift(a: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -367,7 +330,7 @@ def binary_conv2d(a: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     out = torch.empty((H - kh + 1, W - kw + 1), dtype=torch.int32,
                       device=a.device)
     if out.numel():
-        err = _entries()[1](a.data_ptr(), k.data_ptr(), out.data_ptr(), H, W,
+        err = _binary_entry()(a.data_ptr(), k.data_ptr(), out.data_ptr(), H, W,
                             Cw, kh, kw,
                             torch.cuda.current_stream().cuda_stream)
         if err != 0:
@@ -381,16 +344,11 @@ binary_conv2d.launches = 0
 
 
 @functools.cache
-def _entries():
-    """The two C entry points (float conv, binary conv), built and loaded
-    at first use, with their ctypes signatures (pointers, the packed launch
-    arguments' address and the stream as ``c_void_p``)."""
-    lib = load_library(SOURCE)
-    P, I = ctypes.c_void_p, ctypes.c_int
-    conv = lib.matpim_conv2d_shift
-    conv.argtypes = [P, P, P, P, P]
-    binary = lib.matpim_binary_conv2d
-    binary.argtypes = [P, P, P] + [I] * 5 + [P]
-    for fn in (conv, binary):
-        fn.restype = ctypes.c_int
-    return conv, binary
+def _binary_entry():
+    """The binary conv's C entry point, built and loaded at first use, with
+    its ctypes signature (pointers and the stream as ``c_void_p``)."""
+    fn = load_library(SOURCE).matpim_binary_conv2d
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
