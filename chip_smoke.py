@@ -8,32 +8,39 @@ each printing one JSON line per record:
 
 1. build   — compile every CUDA source of the port (one ``nvcc`` each, all
              started together) and print the build seconds and ptxas report;
-             read the card's INT32 issue rate (64 ops per SM per clock at the
-             max SM clock ``nvidia-smi`` reports).
+             read the card's integer rates at the max SM clock
+             ``nvidia-smi`` reports: XOR and add at 64 per SM per clock,
+             population count at 16.
 2. kernels — every kernel against its plain PyTorch version on the card, at
              the main path's shape (integer-valued inputs: exact, tolerance
              0) and at the reference's test shapes (float inputs, the
              reference's tolerances), for the float convs at shapes that
              stress the redesigned tiling (1000 small images, a 514×514
              image with 256×256 reference tiles, odd widths, kh ≠ kw, bf16,
-             5×5 kernels whose halo tiles are staged), and for the two
-             matvec kernels at the other served buckets, a bf16/f32 mix, an
-             M that is not a multiple of the plan's rows a CTA and views at
-             odd offsets;
+             5×5 kernels whose halo tiles are staged), for the two matvec
+             kernels at the other served buckets, a bf16/f32 mix, an M that
+             is not a multiple of the plan's rows a CTA and views at odd
+             offsets, and for binary_conv2d at two images far above the
+             launch floor (514×514×256 and 258×258×1024, k 3), 25 taps on
+             260×260×256, 3-word rows and the ops path's image at 1 and 3
+             words off 16 bytes, each also timed under the other staging
+             choices of its plan (record ``bconv_modes``);
              the compared call's launch count; kernel, plain and library
              times from CUDA events — per call, and for the kernel and the
              library also per launch replayed from a CUDA graph, without the
-             host — and the bound from bytes (3.35 TB/s) and operations
-             (float multiply-adds as 2 flops at 67 TFLOP/s; integer XOR,
-             popcount and add at the INT32 rate). The library call is a
+             host — and the bound, the largest of the bytes' time (3.35
+             TB/s) and each kind of operations' time (float multiply-adds as
+             2 flops at 67 TFLOP/s; XOR and add at the INT32 rate,
+             population count at the popcount rate). The library call is a
              yardstick the port never calls: ``torch.matmul`` of the unpacked
              ±1 operands (binary_matmul), ``torch.mv`` / ``torch.matmul``
              (splitk_matvec), ``F.conv2d`` with ``groups=B`` (the convs) and
              ``F.conv2d`` of the unpacked ±1 floats (binary_conv2d); TF32 is
              off for both matmul and cuDNN. For ``conv2d_shift``,
-             ``splitk_matvec`` and ``binary_matmul`` at their served shapes,
-             also the host time of each step of the wrapper (records
-             ``conv_host`` and ``matvec_host``; ``time.perf_counter_ns``
+             ``splitk_matvec`` and ``binary_matmul`` at their served shapes
+             and ``binary_conv2d`` at the ops path's, also the host time of
+             each step of the wrapper (records ``conv_host``,
+             ``matvec_host`` and ``bconv_host``; ``time.perf_counter_ns``
              over 10⁴ calls each).
 3. engine  — ``BinaryMatvecPlan(1024, 416)`` (565 cycles) at B ∈ {1, 20,
              33}, ``MatvecPlan(1024, 39, 8)`` (9474 cycles) at B ∈ {1, 27}
@@ -84,10 +91,13 @@ sys.path.insert(0, str(ROOT / "src"))
 
 # H100 SXM data-sheet rates: HBM bandwidth, and the 67 TFLOP/s float32 rate
 # outside the tensor cores (an FMA counted as two flops). Integer work is
-# counted against the INT32 issue rate read from the card (int32_rate).
+# counted per SM per clock at the card's max SM clock (int_rates): 32-bit
+# XOR and add at 64, population count at 16 (the CUDA C++ Programming
+# Guide's arithmetic-instruction throughput table, compute capability 9.0).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 INT32_OPS_PER_SM_CLOCK = 64
+POPC_PER_SM_CLOCK = 16
 
 RECORDS = []
 
@@ -147,15 +157,26 @@ def smi(query: str) -> str:
     return out
 
 
-def int32_rate(torch) -> float:
-    """The card's INT32 issue rate: 64 ops per SM per clock × SMs × the
-    max SM clock ``nvidia-smi`` reports (one op per XOR, popcount or add)."""
+def int_rates(torch) -> dict:
+    """The card's integer rates, per second: XOR and add (``int32``, 64
+    per SM per clock) and population count (``popc``, 16), × SMs × the max
+    SM clock ``nvidia-smi`` reports."""
     mhz = float(smi("clocks.max.sm").split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    rate = INT32_OPS_PER_SM_CLOCK * sms * mhz * 1e6
-    emit("rates", sms=sms, max_sm_clock_mhz=mhz, int32_ops_per_s=rate,
+    rates = {"int32": INT32_OPS_PER_SM_CLOCK * sms * mhz * 1e6,
+             "popc": POPC_PER_SM_CLOCK * sms * mhz * 1e6}
+    emit("rates", sms=sms, max_sm_clock_mhz=mhz,
+         int32_ops_per_s=rates["int32"], popc_per_s=rates["popc"],
          f32_flops_per_s=F32_FLOPS_PER_S, hbm_bytes_per_s=HBM_BYTES_PER_S)
-    return rate
+    return rates
+
+
+def xnor_work(rates, outputs: int, words: int) -> list:
+    """The operations of ``outputs`` ±1 dot products over ``words`` words
+    each: an XOR and an add per word and one epilogue op per output at the
+    INT32 rate, a population count per word at the popcount rate."""
+    return [(outputs * (2 * words + 1), rates["int32"]),
+            (outputs * words, rates["popc"])]
 
 
 def phase_build() -> None:
@@ -173,11 +194,13 @@ def phase_build() -> None:
 
 
 def kernel_row(torch, name, shape, kernel, plain, library, args, nbytes,
-               ops, ops_per_s, tol=None, counter=None):
+               work, tol=None, counter=None):
     """Run ``kernel`` once against ``plain`` on the same CUDA inputs (exact
     when ``tol`` is None, else ``(rtol, atol)``), then time the kernel, its
     CUDA graph replay, the plain version and the library yardstick, per
-    call and replayed from a CUDA graph.
+    call and replayed from a CUDA graph. ``work`` lists ``(operations,
+    rate per second)``: the bound is the largest of the bytes' time and
+    each kind of operations' time.
     ``counter`` is the wrapper that counts launches (``kernel`` itself
     unless that is a closure around it)."""
     counter = counter or kernel
@@ -200,7 +223,7 @@ def kernel_row(torch, name, shape, kernel, plain, library, args, nbytes,
               f"max abs err {err}")
     check(launches == 1, f"{name} launched {launches} times for one call")
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / ops_per_s * 1e3
+    ops_ms = max(ops / rate for ops, rate in work) * 1e3
     row = {
         "shape": shape, "max_abs_err": err,
         "tolerance": 0 if tol is None else {"rtol": tol[0], "atol": tol[1]},
@@ -210,7 +233,7 @@ def kernel_row(torch, name, shape, kernel, plain, library, args, nbytes,
         "plain_ms": cuda_ms(torch, lambda: plain(*args)),
         "library_ms": cuda_ms(torch, library),
         "library_graph_ms": graph_ms(torch, library),
-        "bytes": nbytes, "ops": ops,
+        "bytes": nbytes, "ops": [ops for ops, _ in work],
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
     }
@@ -246,7 +269,7 @@ def binary_operands(torch, seed, B, M, N, Kw):
     return af, bf, pack_bits(af), pack_bits(bf)
 
 
-def rows_binary_matmul(torch, rate):
+def rows_binary_matmul(torch, rates):
     from repro_torch.kernels.binary_matmul import (binary_matmul,
                                                    binary_matmul_plain)
     # (B, M, N, Kw, word offset of A): the main path's shape first — 20
@@ -272,9 +295,7 @@ def rows_binary_matmul(torch, rate):
             [B, M, N, Kw] + ([f"offset {off}"] if off else []),
             binary_matmul, binary_matmul_plain,
             lambda af=af, bf=bf: torch.matmul(af, bf.transpose(-1, -2)),
-            (ap, bp), _nbytes(ap, bp, dense),
-            nb * M * N * (3 * Kw + 1),   # xor, popc, add per word; epilogue
-            rate))
+            (ap, bp), _nbytes(ap, bp, dense), xnor_work(rates, nb * M * N, Kw)))
     return rows
 
 
@@ -327,7 +348,7 @@ def rows_splitk(torch):
         rows.append(kernel_row(
             torch, "splitk_matvec", shape, splitk_matvec,
             splitk_matvec_plain, lib, (a, x),
-            _nbytes(a, x, y), 2 * a.numel(), F32_FLOPS_PER_S, tol))
+            _nbytes(a, x, y), [(2 * a.numel(), F32_FLOPS_PER_S)], tol))
     return rows
 
 
@@ -479,7 +500,7 @@ def rows_conv(torch):
         rows.append(kernel_row(
             torch, "conv2d_shift", shape, conv2d_shift, conv2d_shift_plain,
             _grouped_conv(torch, a, k), (a, k), _nbytes(a, k, out),
-            2 * out.numel() * kh * kw, F32_FLOPS_PER_S, tol))
+            [(2 * out.numel() * kh * kw, F32_FLOPS_PER_S)], tol))
     conv_host_steps(torch, *cases[0][1:3])
     return rows
 
@@ -539,52 +560,120 @@ def rows_tiled(torch):
             lambda a, k, bh=bh, bw=bw: conv2d_shift_tiled_plain(a, k, bh,
                                                                 bw),
             _grouped_conv(torch, a, k), (a, k), _nbytes(a, k, out),
-            2 * out.numel() * kh * kw, F32_FLOPS_PER_S, tol,
+            [(2 * out.numel() * kh * kw, F32_FLOPS_PER_S)], tol,
             counter=conv2d_shift_tiled))
     return rows
 
 
-def rows_binary_conv(torch, rate):
+def bconv_host_steps(torch, a, k, a4, k4) -> None:
+    """Host time of each step the ``binary_conv2d`` wrapper makes on CUDA
+    operands, at the ops path's shape (``a4``, ``k4``: the ±1 floats of the
+    ``F.conv2d`` yardstick)."""
+    import torch.nn.functional as F
+    from types import SimpleNamespace
+
+    from repro_torch.kernels import conv2d_shift as cs
+    emit("bconv_host", kernel="binary_conv2d", shape=list(a.shape),
+         us_per_call=host_steps(
+             torch, cs.binary_conv2d,
+             SimpleNamespace(SOURCE=cs.SOURCE, SYMBOL=cs.BINARY_SYMBOL),
+             lambda: cs._binary_signature(a.shape, k.shape, a.dtype,
+                                          k.dtype),
+             a, k, lambda: F.conv2d(a4, k4)))
+
+
+# binary_conv2d's plan knobs for bconv_modes: each launch with its halo
+# tiles read through L1, or staged in shared memory; row reuse whatever the
+# CTA count
+BCONV_MODES = {"direct": {"BCONV_STAGE_TAPS": 1 << 40},
+               "staged": {"BCONV_STAGE_TAPS": 0},
+               "reuse": {"BCONV_MIN_CTAS": 1, "BCONV_STAGE_TAPS": 1 << 40},
+               "reuse staged": {"BCONV_MIN_CTAS": 1, "BCONV_STAGE_TAPS": 0}}
+
+
+def bconv_modes(torch, shape, a, k, want) -> None:
+    """Graph time of ``binary_conv2d`` under its plan and under each
+    alternative of ``BCONV_MODES`` (each checked against the plain
+    version), so the plan's choice of staging stands beside the times of
+    the other choices."""
+    from repro_torch.kernels import conv2d_shift as cs
+    OH, OW = a.shape[0] - k.shape[0] + 1, a.shape[1] - k.shape[1] + 1
+    modes = {}
+    for name, knobs in {"plan": {}, **BCONV_MODES}.items():
+        saved = {n: getattr(cs, n) for n in knobs}
+        try:
+            for n, v in knobs.items():
+                setattr(cs, n, v)
+            cs.binary_conv_launch_plan.cache_clear()
+            cs._binary_signature.cache_clear()
+            p = cs.binary_conv_launch_plan(OH, OW, a.shape[2], *k.shape[:2])
+            check(torch.equal(cs.binary_conv2d(a, k), want),
+                  f"binary_conv2d {name} != plain at {shape}")
+            modes[name] = {"reuse": p.reuse, "staged": p.staged, "G": p.G,
+                           "Q": p.Q, "threads": p.threads, "ctas": p.ctas,
+                           "graph_ms": graph_ms(
+                               torch, lambda: cs.binary_conv2d(a, k))}
+        finally:
+            for n, v in saved.items():
+                setattr(cs, n, v)
+            cs.binary_conv_launch_plan.cache_clear()
+            cs._binary_signature.cache_clear()
+    emit("bconv_modes", kernel="binary_conv2d", shape=shape, modes=modes)
+
+
+def rows_binary_conv(torch, rates):
     import torch.nn.functional as F
     from repro_torch.kernels.conv2d_shift import (binary_conv2d,
                                                   binary_conv2d_plain)
     from repro_torch.kernels.ref import pack_bits
     rows = []
-    # (H, W, C, k): the ops path's shape first, then the reference's
-    for i, (H, W, C, k) in enumerate([(66, 66, 256, 3), (16, 16, 32, 3),
-                                      (32, 24, 64, 3), (20, 20, 128, 5)]):
+    # (H, W, C, kh, kw, word offset of a): the ops path's shape first, then
+    # the reference's; two images whose work is far above the launch floor
+    # (514×514 at C 256, 258×258 at C 1024) and one of 25 taps (row reuse
+    # staged); 3-word rows (C 96, rows off 16 bytes); the ops path's image
+    # at 1 and 3 words off 16 bytes
+    for i, (H, W, C, k, off) in enumerate([
+            (66, 66, 256, 3, 0), (16, 16, 32, 3, 0), (32, 24, 64, 3, 0),
+            (20, 20, 128, 5, 0), (514, 514, 256, 3, 0),
+            (258, 258, 1024, 3, 0), (260, 260, 256, 5, 0),
+            (66, 66, 96, 3, 0), (66, 66, 256, 3, 1), (66, 66, 256, 3, 3)]):
         rng = np.random.default_rng(20 + i)
         af = torch.from_numpy(rng.choice([-1.0, 1.0], size=(H, W, C)).astype(
             np.float32)).cuda()
         kf = torch.from_numpy(rng.choice([-1.0, 1.0], size=(k, k, C)).astype(
             np.float32)).cuda()
         ap, kp = pack_bits(af), pack_bits(kf)
+        if off:
+            ap = at_offset(torch, ap, off)
         a4 = af.permute(2, 0, 1)[None].contiguous()
         k4 = kf.permute(2, 0, 1)[None].contiguous()
         dense = F.conv2d(a4, k4)[0, 0].round().to(torch.int32)
         check(torch.equal(binary_conv2d(ap, kp), dense),
               f"binary_conv2d != the dense ±1 conv at {(H, W, C, k)}")
-        n_out = (H - k + 1) * (W - k + 1)
+        shape = [H, W, C, k] + ([f"offset {off}"] if off else [])
         rows.append(kernel_row(
-            torch, "binary_conv2d", [H, W, C, k], binary_conv2d,
+            torch, "binary_conv2d", shape, binary_conv2d,
             binary_conv2d_plain, lambda a4=a4, k4=k4: F.conv2d(a4, k4),
             (ap, kp), _nbytes(ap, kp, dense),
-            n_out * (k * k * (C // 32) * 3 + 1), rate))
+            xnor_work(rates, dense.numel(), k * k * (C // 32))))
+        bconv_modes(torch, shape, ap, kp, dense)
+        if i == 0:
+            bconv_host_steps(torch, ap, kp, a4, k4)
     return rows
 
 
-def phase_kernels(torch, rate) -> dict:
+def phase_kernels(torch, rates) -> dict:
     """Every kernel against its plain version; returns each kernel's rows
     (the main-path row first)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    rows = {"binary_matmul": rows_binary_matmul(torch, rate),
+    rows = {"binary_matmul": rows_binary_matmul(torch, rates),
             "splitk_matvec": rows_splitk(torch)}
     matvec_host_steps(torch)
     return {**rows,
             "conv2d_shift": rows_conv(torch),
             "conv2d_shift_tiled": rows_tiled(torch),
-            "binary_conv2d": rows_binary_conv(torch, rate)}
+            "binary_conv2d": rows_binary_conv(torch, rates)}
 
 
 def correlate(img, K, N):
@@ -868,8 +957,7 @@ def main() -> int:
     name_limit = smi("name,power.limit")
     t0 = time.perf_counter()
     phase_build()
-    rate = int32_rate(torch)
-    rows = phase_kernels(torch, rate)
+    rows = phase_kernels(torch, int_rates(torch))
     phase_engine()
     launches = phase_serve()
     launches.update({n: v for n, v in phase_ops(torch).items()

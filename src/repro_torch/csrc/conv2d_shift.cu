@@ -3,7 +3,7 @@
 // channel-packed binary (XNOR-popcount) conv. Built with nvcc into a plain C
 // library and loaded with ctypes by repro_torch/kernels/conv2d_shift.py,
 // which holds the plain PyTorch version of each function and chooses every
-// launch's tiling (conv_launch_plan).
+// launch's tiling (conv_launch_plan, binary_conv_launch_plan).
 //
 // Replaces the three TPU kernels of src/repro/kernels/conv2d_shift.py:
 //   conv2d_shift        (_conv_kernel under pl.pallas_call)
@@ -69,13 +69,56 @@
 // and writes 4.2 MB: device memory bounds it (2.5 us at 3.35 TB/s). The
 // served conv2d_shift, B = 126 images of 64 x 8 with k = 3, moves about
 // 450 KB (0.13 us): the launch itself and the wrapper on the host dominate.
-// binary_conv2d does 3 integer ops (xor, popc, add) per word per tap and
-// reuses each input word k*k times, so at wide C its integer issue rate, not
-// memory, is the bound.
+//
+// binary_conv2d replaces _binary_conv_kernel / binary_conv2d of
+// src/repro/kernels/conv2d_shift.py:88-115, which holds the whole packed
+// image in VMEM and adds kh*kw shifted XOR-popcount planes. Per word per tap
+// it does one XOR, one population count and one add. The card counts
+// population at 16 per SM per clock against 64 for XOR and add, so wherever
+// the work is above the launch floor the popcount pipe is the bound (at
+// 514 x 514 x 256 and 258 x 258 x 1024, k = 3: 18.9 M popcounts, 4.5 us,
+// against 2.5-2.8 us for the bytes). At the ops path's 66 x 66 x 256 the
+// bound is 0.07 us and the launch and one memory round trip are the time.
+// What the design does about each:
+//   - Fill the card: a group of 2^lg lanes (a power of two that leaves at
+//     most 1/8 of its unit slots idle) shares an output's words and sums its
+//     counts with __shfl_xor_sync, in CTA tiles chosen by the wrapper
+//     (binary_conv_launch_plan) so that launches of enough outputs have at
+//     least 132 CTAs: 256 CTAs of 16 outputs at 66 x 66 x 256, where one
+//     thread an output in blocks of 256 would launch 16.
+//   - Few loads per popcount: channels are words and a tap row's words are
+//     one contiguous run, read as uint4 where Cw % 4 == 0 (and the views
+//     are 16-byte aligned). Small launches spread all of an output's units
+//     over its lanes, 8 loads in flight each, for one memory round trip
+//     (count_units). Launches that fill the card reuse rows (count_rows): a
+//     group owns 4 output rows of a column and counts each halo row's unit,
+//     loaded once, against every (output row, tap row) that uses it, 4*kh
+//     counts from 3+kh loads, so the loop issues 9 LDS.128, 48 XORs, 48
+//     popcounts and 24 adds per 48 words (its SASS for sm_90a): the
+//     popcount pipe is the loop's limit.
+//   - Staging: with row reuse over more than 9 taps a CTA copies its halo
+//     rows, each a contiguous run of (TW+kw-1)*Cw words, and the taps into
+//     shared memory once (row_stage.cuh's span copy), row pitch padded to
+//     kw*Cw mod 32 words so a group's units that run on into the next row
+//     stay on consecutive banks; 48 KB without an opt-in. Every other launch
+//     reads A and K through L1: the copies of all resident CTAs finish
+//     before any count starts, while direct loads overlap other warps'
+//     counts, and that measured faster at every 3 x 3 and small 5 x 5 shape
+//     (PERF.md gives both times).
+//
+// No tensor cores for binary_conv2d. A call computes one output channel,
+// the reference's contract, and the smallest b1 mma.sync is n = 8 wide, so
+// 7/8 of every product would be thrown away. ptxas of the CUDA 12.9
+// toolkit still takes both b1 variants for sm_90a,
+// mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.xor.popc and .and.popc
+// (the toolkit on the card's machine carries no PTX ISA document; this was
+// checked by compiling each).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "row_stage.cuh"
 
@@ -92,10 +135,27 @@ struct ConvArgs {
   int k_batched, a_bf16, k_bf16;
 };
 
+// binary_conv2d's launch parameters, computed and cached by the Python
+// wrapper (kernels/conv2d_shift.py::_BinaryArgs, same field order, int32).
+struct BconvArgs {
+  int H, W, Cw, kh, kw, OH, OW;
+  int V;               // words per unit: 4 (uint4) where Cw % 4 == 0, else 1
+  int lg;              // lanes per output group: 2^lg
+  int reuse;           // row reuse (count_rows), or unit spread
+  int Q;               // outputs per group, in consecutive rows
+  int TH, TW;          // CTA output tile (TW a power of two)
+  int threads, staged;
+  int pitch;           // shared halo row pitch, words (a multiple of 4)
+  int smem, taps_off;  // dynamic shared bytes, where the taps start
+  int grid_x, grid_y;  // row tiles, column tiles
+};
+
 namespace {
 
-constexpr int kThreads = 256;  // binary_conv2d's block, and the most a
-                               // float conv block has
+constexpr int kThreads = 256;  // the most threads a conv block has
+constexpr int kChunk = 8;      // binary conv units a lane loads at once
+constexpr int kReuseRows = 4;  // its output rows per lane group under row
+                               // reuse (BCONV_Q in the wrapper)
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -265,24 +325,176 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// a: (H, W, Cw) uint32, k: (kh, kw, Cw) uint32, out: (OH, OW) int32 =
-// kh*kw*32*Cw - 2 * sum of popcount(a ^ k) over taps and words
-__global__ void binary_conv2d_kernel(const uint32_t* __restrict__ a,
-                                     const uint32_t* __restrict__ k,
-                                     int32_t* __restrict__ out, int H, int W,
-                                     int Cw, int kh, int kw) {
-  const int OH = H - kh + 1, OW = W - kw + 1;
-  const long long o = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (o >= (long long)OH * OW) return;
-  const int oy = (int)(o / OW), ox = (int)(o - (long long)oy * OW);
-  int mism = 0;
-  for (int v = 0; v < kh; ++v)
-    for (int h = 0; h < kw; ++h) {
-      const uint32_t* src = a + ((long long)(oy + v) * W + ox + h) * Cw;
-      const uint32_t* tap = k + (long long)(v * kw + h) * Cw;
-      for (int w = 0; w < Cw; ++w) mism += __popc(src[w] ^ tap[w]);
+// binary_conv2d's popcount of a ^ k over one unit of V words.
+__device__ __forceinline__ int popc_xor(uint32_t a, uint32_t b) {
+  return __popc(a ^ b);
+}
+__device__ __forceinline__ int popc_xor(uint4 a, uint4 b) {
+  return __popc(a.x ^ b.x) + __popc(a.y ^ b.y) + __popc(a.z ^ b.z) +
+         __popc(a.w ^ b.w);
+}
+
+// One unit of words: from shared memory, or from global memory through L1.
+template <typename U, bool SHARED>
+__device__ __forceinline__ U load_unit(const uint32_t* p) {
+  if constexpr (SHARED)
+    return *reinterpret_cast<const U*>(p);
+  else
+    return __ldg(reinterpret_cast<const U*>(p));
+}
+
+// Unit spread (small launches, where latency rules): the lane's count for
+// its group's one output at halo row `row`, word `col`, over units g, g+G,
+// ... of the output's kh runs of LU units, kChunk loads in flight at once,
+// read through L1 (a row stride of WC words).
+template <int V, typename U>
+__device__ __forceinline__ int count_units(const uint32_t* tile,
+                                           const uint32_t* taps, int row,
+                                           int col, int WC, int kh, int LU,
+                                           int g, int G) {
+  const int r0 = row * WC + col;
+  int mism = 0, v = 0, j = g;  // this lane's next unit, v * LU + j
+  while (j >= LU && v < kh) {
+    j -= LU;
+    ++v;
+  }
+  while (v < kh) {
+    U tp[kChunk], x[kChunk];
+    bool ok[kChunk];
+#pragma unroll
+    for (int i = 0; i < kChunk; ++i) {
+      ok[i] = v < kh;
+      if (ok[i]) {
+        tp[i] = load_unit<U, false>(taps + (v * LU + j) * V);
+        x[i] = load_unit<U, false>(tile + r0 + v * WC + j * V);
+      }
+      j += G;
+      while (j >= LU && v < kh) {
+        j -= LU;
+        ++v;
+      }
     }
-  out[o] = kh * kw * 32 * Cw - 2 * mism;
+#pragma unroll
+    for (int i = 0; i < kChunk; ++i)
+      if (ok[i]) mism += popc_xor(x[i], tp[i]);
+  }
+  return mism;
+}
+
+// Row reuse (launches that fill the card): the lane's counts for its
+// group's Q outputs, rows row0..row0+Q-1 of one column, over the unit
+// columns j = g, g+G, ... of the KH runs. For each j the lane loads the KH
+// tap units once and each of the Q+KH-1 halo rows' unit once, and counts
+// that unit against every (output q, tap row v) with q + v = its row: Q*KH
+// counts from Q+KH-1 loads. Halo rows past hmax (rows of outputs past the
+// tile, never stored) are clamped to it. Halo row r starts at word
+// r*stride of `tile` (+ the staged row's misalignment (m0 + r*wc4) % 4
+// when V = 1).
+template <int V, int Q, int KH, bool SHARED, typename U>
+__device__ __forceinline__ void count_rows(int (&mism)[Q],
+                                           const uint32_t* tile,
+                                           const uint32_t* taps, int row0,
+                                           int hmax, int col, int stride,
+                                           int m0, int wc4, int LU, int g,
+                                           int G) {
+  constexpr bool MIS = SHARED && V == 1;
+  int ro[Q + KH - 1];
+#pragma unroll
+  for (int r = 0; r < Q + KH - 1; ++r) {
+    const int hr = min(row0 + r, hmax);
+    ro[r] = hr * stride + col + (MIS ? (m0 + hr * wc4) & 3 : 0);
+  }
+  for (int j = g; j < LU; j += G) {
+    U tv[KH];
+#pragma unroll
+    for (int v = 0; v < KH; ++v)
+      tv[v] = load_unit<U, SHARED>(taps + (v * LU + j) * V);
+#pragma unroll
+    for (int r = 0; r < Q + KH - 1; ++r) {
+      const U x = load_unit<U, SHARED>(tile + ro[r] + j * V);
+#pragma unroll
+      for (int v = 0; v < KH; ++v)
+        if (r - v >= 0 && r - v < Q) mism[r - v] += popc_xor(x, tv[v]);
+    }
+  }
+}
+
+// a: (H, W, Cw) uint32, k: (kh, kw, Cw) uint32, out: (OH, OW) int32 =
+// kh*kw*32*Cw - 2 * sum of popcount(a ^ k) over taps and words.
+// CTA (blockIdx.x, blockIdx.y) owns the TH x TW output tile at row tile x,
+// column tile y. Its threads form groups of G = 2^lg lanes, group (rb, c)
+// = (grp / TW, grp % TW) owning the Q outputs of rows rb*Q.. of column c
+// (TW a power of two). For a fixed tap row v an output's taps and words
+// are one contiguous run of L = kw*Cw words (a[oy+v, ox.., :] and
+// k[v, :, :]), so an output's work is kh runs of L/V units of V words
+// (uint4 when V = 4). KH = 0: Q = 1 and the lanes spread all kh*L/V units
+// (count_units); KH = kh: row reuse (count_rows). The group's counts are
+// summed by __shfl_xor_sync. Outputs past the ragged tile edge are clamped
+// to the last valid column and halo row (counted, never stored), so no read
+// leaves the halo tile. STAGED (row reuse only): the CTA first copies its
+// (TH+kh-1) halo rows into shared memory, each row one span of
+// (TW+kw-1)*Cw words, and the taps as one span (row_stage.cuh: each lands
+// at its own misalignment); else it reads A and K through L1. Offsets are
+// 32-bit: the wrapper refuses images of 2^31 words or more.
+template <int V, int KH, int Q, bool STAGED>
+__global__ void __launch_bounds__(kThreads)
+    binary_conv2d_kernel(const uint32_t* __restrict__ a,
+                         const uint32_t* __restrict__ k,
+                         int32_t* __restrict__ out, const BconvArgs p) {
+  using U = typename std::conditional<V == 4, uint4, uint32_t>::type;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int t = threadIdx.x;
+  const int y0 = blockIdx.x * p.TH, x0 = blockIdx.y * p.TW;
+  const int th = min(p.TH, p.OH - y0), tw = min(p.TW, p.OW - x0);
+  const int Cw = p.Cw, WC = p.W * Cw, LU = p.kw * Cw / V;
+  const uint32_t* src = a + y0 * WC + x0 * Cw;  // the halo tile's first word
+
+  const int G = 1 << p.lg, g = t & (G - 1), grp = t >> p.lg;
+  const int ltw = 31 - __clz(p.TW);
+  const int rb = grp >> ltw, c = grp & (p.TW - 1);
+  const int col = min(c, tw - 1) * Cw, row0 = rb * Q;
+  int mism[Q];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) mism[q] = 0;
+  if constexpr (KH == 0) {
+    static_assert(Q == 1 && !STAGED, "unit spread reads through L1");
+    mism[0] = count_units<V, U>(src, k, min(row0, th - 1), col, WC, p.kh, LU,
+                                g, G);
+  } else if constexpr (STAGED) {
+    uint32_t* st = reinterpret_cast<uint32_t*>(smem);
+    uint32_t* sk = reinterpret_cast<uint32_t*>(smem + p.taps_off);
+    const int hrows = th + KH - 1, n = (tw + p.kw - 1) * Cw;
+    // a group of 2^lr threads, the fewest that cover a row's copies (at
+    // most a warp), stages one row
+    const int units = (n >> 2) + 2;
+    const int lr = min(32 - __clz(units - 1), min(5, 31 - __clz(p.threads)));
+    const int li = t & ((1 << lr) - 1);
+    for (int r = t >> lr; r < hrows; r += p.threads >> lr)
+      row_stage::stage_span(st + r * p.pitch, src + r * WC, n, li, 1 << lr);
+    const int kmis = row_stage::stage_span(sk, k, KH * p.kw * Cw, t,
+                                           p.threads);
+    row_stage::cp_async_wait_all();
+    __syncthreads();
+    count_rows<V, Q, KH, true, U>(mism, st, sk + kmis, row0, th + KH - 2,
+                                  col, p.pitch, row_stage::misalignment(src),
+                                  WC & 3, LU, g, G);
+  } else {
+    count_rows<V, Q, KH, false, U>(mism, src, k, row0, th + KH - 2, col, WC,
+                                   0, 0, LU, g, G);
+  }
+  // a group is G (a power of two) aligned lanes of one warp
+#pragma unroll
+  for (int q = 0; q < Q; ++q)
+    for (int o = G >> 1; o > 0; o >>= 1)
+      mism[q] += __shfl_xor_sync(0xffffffffu, mism[q], o);
+  const unsigned total = 32u * (unsigned)(p.kh * p.kw * Cw);
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const int orow = row0 + q;
+    if ((q & (G - 1)) == g && c < tw && orow < th)
+      out[(y0 + orow) * p.OW + x0 + c] =
+          (int32_t)(total - 2u * (unsigned)mism[q]);
+  }
 }
 
 template <bool STAGED, int R, int KH, int KW, typename TA, typename TK>
@@ -311,6 +523,28 @@ void launch_typed(const void* a, const void* k, void* out, const ConvArgs& p,
                   int lvw, cudaStream_t stream) {
   p.staged ? launch_staged<true, TA, TK>(a, k, out, p, lvw, stream)
            : launch_staged<false, TA, TK>(a, k, out, p, lvw, stream);
+}
+
+template <int V, int KH, int Q, bool STAGED>
+void launch_bconv_q(const void* a, const void* k, void* out,
+                    const BconvArgs& p, cudaStream_t stream) {
+  binary_conv2d_kernel<V, KH, Q, STAGED>
+      <<<dim3((unsigned)p.grid_x, (unsigned)p.grid_y), (unsigned)p.threads,
+         p.smem, stream>>>((const uint32_t*)a, (const uint32_t*)k,
+                           (int32_t*)out, p);
+}
+
+template <int V, bool STAGED>
+void launch_bconv(const void* a, const void* k, void* out, const BconvArgs& p,
+                  cudaStream_t stream) {
+  constexpr int Q = kReuseRows;
+  switch (p.reuse ? p.kh : 0) {
+    case 2: return launch_bconv_q<V, 2, Q, STAGED>(a, k, out, p, stream);
+    case 3: return launch_bconv_q<V, 3, Q, STAGED>(a, k, out, p, stream);
+    case 4: return launch_bconv_q<V, 4, Q, STAGED>(a, k, out, p, stream);
+    case 5: return launch_bconv_q<V, 5, Q, STAGED>(a, k, out, p, stream);
+    default: return launch_bconv_q<V, 0, 1, false>(a, k, out, p, stream);
+  }
 }
 
 // log2 of the widest cp.async (16, 8 or 4 bytes) that A's address, its row
@@ -350,14 +584,23 @@ extern "C" int matpim_conv2d_shift(const void* a, const void* k, void* out,
 }
 
 // a: (H, W, Cw) uint32, k: (kh, kw, Cw) uint32, out: (H-kh+1, W-kw+1)
-// int32, all contiguous on the device.
+// int32, all contiguous on the device; args: the launch plan. Units of four
+// words need A and K 16-byte aligned: a view off 16 bytes runs the plan
+// with single words. Launches on `stream` and returns cudaGetLastError().
 extern "C" int matpim_binary_conv2d(const void* a, const void* k, void* out,
-                                    int H, int W, int Cw, int kh, int kw,
-                                    void* stream) {
-  const long long n = (long long)(H - kh + 1) * (W - kw + 1);
-  binary_conv2d_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads,
-                         0, (cudaStream_t)stream>>>(
-      (const uint32_t*)a, (const uint32_t*)k, (int32_t*)out, H, W, Cw, kh,
-      kw);
+                                    const BconvArgs* args, void* stream) {
+  const BconvArgs& p = *args;
+  cudaStream_t s = (cudaStream_t)stream;
+  // the plans the kernel is compiled for (binary_conv_launch_plan's)
+  const bool ok = p.reuse ? p.kh >= 2 && p.kh <= 5 && p.Q == kReuseRows
+                          : p.Q == 1 && !p.staged;
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const bool v4 = p.V == 4 && (((uintptr_t)a | (uintptr_t)k) & 15) == 0;
+  if (v4)
+    p.staged ? launch_bconv<4, true>(a, k, out, p, s)
+             : launch_bconv<4, false>(a, k, out, p, s);
+  else
+    p.staged ? launch_bconv<1, true>(a, k, out, p, s)
+             : launch_bconv<1, false>(a, k, out, p, s);
   return (int)cudaGetLastError();
 }

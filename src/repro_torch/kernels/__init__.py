@@ -11,7 +11,8 @@ Each is CUDA C++ for sm_90a in place of a Pallas kernel of
                           over CTA tiles chosen for the card (MatPIM §III-A)
     conv2d_shift_tiled  — the same kernel under the reference's bh×bw tile
                           contract
-    binary_conv2d       — channel-packed XNOR conv (MatPIM §III-C)
+    binary_conv2d       — channel-packed XNOR conv (MatPIM §III-C), lane
+                          groups per output over tiles chosen for the card
                           (all three ``conv2d_shift.py``,
                           ``csrc/conv2d_shift.cu``)
 

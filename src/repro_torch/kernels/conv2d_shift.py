@@ -28,6 +28,12 @@ the shapes and dtypes — the checks, the output shape and the packed launch
 arguments — is computed once per signature and cached, so a call makes a
 few device and layout checks, one ``new_empty`` and one ctypes call
 (``kernels.launch``, shared with ``splitk_matvec`` and ``binary_matmul``).
+
+:func:`binary_conv2d` takes the same host path, with its launch chosen by
+:func:`binary_conv_launch_plan`: lanes grouped per output over the
+channel words, CTA tiles that fill the card, and either every output's
+units spread over its lanes (small launches) or each halo row's units
+loaded once for several output rows (launches that fill the card).
 """
 from __future__ import annotations
 
@@ -38,7 +44,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import Signature, _round_up, launch, load_library
+from . import Signature, _round_up, launch, span_bytes
 from .binary_matmul import popcount32
 
 SOURCE = "conv2d_shift.cu"
@@ -59,6 +65,16 @@ MAX_IMAGES = 64       # images per CTA (the block's z extent)
 STAGE_TAPS = 9        # kernels of more taps stage halo tiles in shared
 DIRECT_CTAS = 132     # memory, in launches of at least this many CTAs
 SMEM_BYTES = 48 * 1024   # dynamic shared memory a block gets with no opt-in
+
+# binary_conv2d's launch plan (binary_conv_launch_plan)
+BINARY_SYMBOL = "matpim_binary_conv2d"
+BCONV_THREADS = 256   # the most threads a binary conv CTA has
+BCONV_Q = 4           # output rows per lane group under row reuse (the
+                      # kernel's kReuseRows)
+REUSE_KH = (2, 5)     # kernel heights compiled for row reuse
+LANE_WASTE = 8        # a group idles at most 1/LANE_WASTE of its unit slots
+BCONV_MIN_CTAS = 132  # launches below this many CTAs spread units instead
+BCONV_STAGE_TAPS = 9  # row reuse over kernels of more taps stages halo tiles
 
 
 class LaunchPlan(NamedTuple):
@@ -136,6 +152,115 @@ def conv_launch_plan(OH: int, OW: int, B: int, kh: int, kw: int,
     return LaunchPlan(
         TH=TH, TW=TW, images_per_cta=ipc, R=R, staged=staged, pitch=pitch,
         block=(TW, s, ipc), grid=grid, smem=smem, taps_off=taps_off)
+
+
+class BinaryConvPlan(NamedTuple):
+    """One launch of the binary conv kernel: ``TH × TW`` output tiles, a
+    group of ``G`` lanes per output with ``Q`` outputs (consecutive rows)
+    per group, units of ``V`` words, row reuse or unit spread; staged halo
+    rows lie ``pitch`` words apart in shared memory, the taps from
+    ``taps_off`` bytes on."""
+    V: int
+    G: int
+    reuse: bool
+    Q: int
+    TH: int
+    TW: int
+    threads: int
+    staged: bool
+    pitch: int
+    grid: tuple[int, int]     # (row tiles, column tiles)
+    smem: int
+    taps_off: int
+
+    @property
+    def ctas(self) -> int:
+        return self.grid[0] * self.grid[1]
+
+
+def _lanes(n: int) -> int:
+    """Lanes sharing ``n`` units: the largest power of two up to a warp
+    that idles at most ``1/LANE_WASTE`` of its ``ceil(n/G)·G`` slots."""
+    G = 32
+    while G > 1 and -(-n // G) * G * LANE_WASTE > (LANE_WASTE + 1) * n:
+        G //= 2
+    return G
+
+
+def _bconv_tile(OH: int, OW: int, groups: int, Q: int):
+    """(TH, TW, grid) of ``groups`` lane groups of ``Q`` output rows: the
+    widest power-of-two TW up to the square root of the tile's outputs (a
+    compact halo), at most ``groups`` and no wider than OW needs."""
+    TW = 1
+    while (2 * TW) ** 2 <= groups * Q and 2 * TW <= groups and TW < OW:
+        TW *= 2
+    TH = groups // TW * Q
+    return TH, TW, (-(-OH // TH), -(-OW // TW))
+
+
+def _bconv_smem(TH: int, TW: int, Cw: int, kh: int, kw: int, V: int):
+    """(pitch, taps_off, smem) of a staged tile: each halo row (its span
+    lands up to 3 words late) padded to 16 bytes and, for units of 4 words,
+    to a pitch ≡ kw·Cw (mod 32 words), so a group's units that run on into
+    the next halo row stay on consecutive banks; the taps staged as one
+    span after them."""
+    pitch = _round_up((TW + kw - 1) * Cw + 3, 4)
+    while V == 4 and (pitch - kw * Cw) % 32:
+        pitch += 4
+    taps_off = 4 * pitch * (TH + kh - 1)
+    return pitch, taps_off, taps_off + span_bytes(1, kh * kw * Cw, 4)
+
+
+@functools.lru_cache(maxsize=1024)
+def binary_conv_launch_plan(OH: int, OW: int, Cw: int, kh: int,
+                            kw: int) -> BinaryConvPlan:
+    """The launch of ``binary_conv2d`` over an ``OH × OW`` output of
+    ``Cw``-word channels with a ``kh × kw`` kernel.
+
+    An output's work is ``kh`` runs of ``kw·Cw`` words, ``LU`` units of
+    ``V`` words each (4 where ``Cw % 4 == 0``, read as ``uint4``).
+
+    * Row reuse, for ``kh`` in ``REUSE_KH`` when it gives at least
+      ``BCONV_MIN_CTAS`` CTAs: a group of ``_lanes(LU)`` lanes owns
+      ``BCONV_Q`` output rows of a column; each lane loads each of its
+      units of the ``BCONV_Q + kh − 1`` halo rows once and counts it for
+      every output row that uses it. CTAs of ``BCONV_THREADS`` threads
+      (fewer where that lets a staged tile fit ``SMEM_BYTES``).
+    * Otherwise unit spread: a group of ``_lanes(kh·LU)`` lanes per output
+      (``Q = 1``); threads halve from ``BCONV_THREADS`` to one warp while
+      there are fewer than ``BCONV_MIN_CTAS`` CTAs (a warp-sized CTA holds
+      ``32/G`` outputs, so ``OH·OW ≥ 132·32/G`` gives at least 132).
+
+    Row reuse over kernels of more than ``BCONV_STAGE_TAPS`` taps stages
+    each CTA's halo rows and taps in shared memory (the most threads whose
+    tile fits ``SMEM_BYTES``); every other launch reads A and K through L1,
+    where loads and counts of the resident warps overlap and staging, whose
+    copies all finish before any count starts, measured slower (PERF.md).
+    """
+    V = 4 if Cw % 4 == 0 else 1
+    LU = kw * Cw // V
+    stage = kh * kw > BCONV_STAGE_TAPS
+
+    def plan_for(G, Q, threads):
+        TH, TW, grid = _bconv_tile(OH, OW, threads // G, Q)
+        pitch, taps_off, smem = _bconv_smem(TH, TW, Cw, kh, kw, V)
+        staged = Q > 1 and stage and smem <= SMEM_BYTES
+        if not staged:
+            pitch = taps_off = smem = 0
+        return BinaryConvPlan(V=V, G=G, reuse=Q > 1, Q=Q, TH=TH, TW=TW,
+                              threads=threads, staged=staged, pitch=pitch,
+                              grid=grid, smem=smem, taps_off=taps_off)
+
+    sizes = [BCONV_THREADS >> i for i in range(BCONV_THREADS.bit_length())
+             if BCONV_THREADS >> i >= 32]
+    if REUSE_KH[0] <= kh <= REUSE_KH[1]:
+        plans = [plan_for(_lanes(LU), BCONV_Q, n) for n in sizes]
+        plans = [p for p in plans if p.ctas >= BCONV_MIN_CTAS]
+        if plans:
+            return next((p for p in plans if p.staged), plans[0])
+    G = _lanes(kh * LU)
+    plans = [plan_for(G, 1, n) for n in sizes]
+    return next((p for p in plans if p.ctas >= BCONV_MIN_CTAS), plans[-1])
 
 
 class _Args(ctypes.Structure):
@@ -271,19 +396,6 @@ def conv2d_shift_tiled(a: torch.Tensor, k: torch.Tensor, bh: int = 128,
 conv2d_shift_tiled.launches = 0
 
 
-def _cuda_ready(name: str, *ts: torch.Tensor) -> bool:
-    """True for CUDA operands on the current card, False for CPU operands;
-    raises for anything else."""
-    dev = ts[0].device
-    if dev.type == "cpu":
-        return False
-    if dev.type != "cuda":
-        raise ValueError(f"{name} runs on CUDA or the CPU, not {dev}")
-    if not all(t.is_contiguous() for t in ts):
-        raise ValueError(f"{name} takes contiguous operands")
-    return True
-
-
 def binary_conv2d_plain(a: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: a (H, W, Cw), k (kh, kw, Cw) int32 words →
     (OH, OW) int32 ±1 dot over (kh, kw, 32·Cw)."""
@@ -297,6 +409,46 @@ def binary_conv2d_plain(a: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return (kh * kw * 32 * Cw - 2 * mism).to(torch.int32)
 
 
+class _BinaryArgs(ctypes.Structure):
+    """The binary kernel's launch arguments (``BconvArgs`` in the CUDA
+    source, same field order), packed once per signature."""
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "H", "W", "Cw", "kh", "kw", "OH", "OW", "V", "lg", "reuse", "Q", "TH",
+        "TW", "threads", "staged", "pitch", "smem", "taps_off", "grid_x",
+        "grid_y")]
+
+
+@functools.lru_cache(maxsize=256)
+def _binary_signature(a_shape, k_shape, a_dtype, k_dtype) -> Signature:
+    """The binary conv's checks, output shape, refusal and packed launch
+    arguments of one shape and dtype signature (a raise is not cached)."""
+    if a_dtype != torch.int32 or k_dtype != torch.int32:
+        raise TypeError(f"binary_conv2d takes int32 words, got {a_dtype} "
+                        f"and {k_dtype}")
+    if len(a_shape) != 3 or len(k_shape) != 3 or a_shape[-1] != k_shape[-1]:
+        raise ValueError(f"binary_conv2d takes (H, W, Cw) and (kh, kw, Cw);"
+                         f" got {tuple(a_shape)} and {tuple(k_shape)}")
+    (H, W, Cw), (kh, kw) = a_shape, k_shape[:2]
+    if kh > H or kw > W or min(kh, kw) < 1:
+        raise ValueError(f"kernel {(kh, kw)} does not fit the image "
+                         f"{(H, W)}")
+    OH, OW = H - kh + 1, W - kw + 1
+    if H * W * max(Cw, 1) >= 1 << 31:     # image words, and outputs
+        return Signature((OH, OW), torch.int32, 0,
+                         f"binary_conv2d shape {tuple(a_shape)} exceeds the "
+                         f"kernel's index range", None, 0)
+    p = binary_conv_launch_plan(OH, OW, Cw, kh, kw)
+    if p.grid[1] > 65535:
+        return Signature((OH, OW), torch.int32, 0,
+                         f"binary_conv2d output width {OW} exceeds the "
+                         f"kernel's index range", None, 0)
+    args = _BinaryArgs(H, W, Cw, kh, kw, OH, OW, p.V, p.G.bit_length() - 1,
+                       int(p.reuse), p.Q, p.TH, p.TW, p.threads,
+                       int(p.staged), p.pitch, p.smem, p.taps_off, *p.grid)
+    return Signature((OH, OW), torch.int32, OH * OW, None, args,
+                     ctypes.addressof(args))
+
+
 def binary_conv2d(a: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """±1 conv over channel-packed words (XNOR-Net style, MatPIM §III-C):
     a (H, W, C/32), k (kh, kw, C/32) int32 holding uint32 bits → (OH, OW)
@@ -305,50 +457,9 @@ def binary_conv2d(a: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     CUDA tensors go to the kernel (one launch; ``binary_conv2d.launches``
     counts launches), CPU tensors to :func:`binary_conv2d_plain`.
     """
-    if a.dtype != torch.int32 or k.dtype != torch.int32:
-        raise TypeError(f"binary_conv2d takes int32 words, got {a.dtype} "
-                        f"and {k.dtype}")
-    if a.ndim != 3 or k.ndim != 3 or a.shape[-1] != k.shape[-1]:
-        raise ValueError(f"binary_conv2d takes (H, W, Cw) and (kh, kw, Cw);"
-                         f" got {tuple(a.shape)} and {tuple(k.shape)}")
-    if k.shape[0] > a.shape[0] or k.shape[1] > a.shape[1] \
-            or min(k.shape[:2]) < 1:
-        raise ValueError(f"kernel {tuple(k.shape[:2])} does not fit the "
-                         f"image {tuple(a.shape[:2])}")
-    if a.device != k.device:
-        raise ValueError(f"operands on {a.device} and {k.device}")
-    if not _cuda_ready("binary_conv2d", a, k):
-        return binary_conv2d_plain(a, k)
-    if a.device.index != torch.cuda.current_device():
-        with torch.cuda.device(a.device):    # launch on the operands' card
-            return binary_conv2d(a, k)
-    H, W, Cw = a.shape
-    kh, kw, _ = k.shape
-    if a.numel() >= 1 << 31:
-        raise ValueError(f"binary_conv2d shape {tuple(a.shape)} exceeds "
-                         f"the kernel's index range")
-    out = torch.empty((H - kh + 1, W - kw + 1), dtype=torch.int32,
-                      device=a.device)
-    if out.numel():
-        err = _binary_entry()(a.data_ptr(), k.data_ptr(), out.data_ptr(), H, W,
-                            Cw, kh, kw,
-                            torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"binary_conv2d launch failed: CUDA error "
-                               f"{err}")
-        binary_conv2d.launches += 1
-    return out
+    sig = _binary_signature(a.shape, k.shape, a.dtype, k.dtype)
+    out = launch(binary_conv2d, sig, a, k, SOURCE, BINARY_SYMBOL)
+    return binary_conv2d_plain(a, k) if out is None else out
 
 
 binary_conv2d.launches = 0
-
-
-@functools.cache
-def _binary_entry():
-    """The binary conv's C entry point, built and loaded at first use, with
-    its ctypes signature (pointers and the stream as ``c_void_p``)."""
-    fn = load_library(SOURCE).matpim_binary_conv2d
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
