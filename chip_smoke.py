@@ -43,23 +43,40 @@ each printing one JSON line per record:
              ``matvec_host`` and ``bconv_host``; ``time.perf_counter_ns``
              over 10⁴ calls each).
 3. engine  — ``BinaryMatvecPlan(1024, 416)`` (565 cycles) at B ∈ {1, 20,
-             33}, ``MatvecPlan(1024, 39, 8)`` (9474 cycles) at B ∈ {1, 27}
-             and ``ConvPlan(64, 8, 3, 8)`` (9800 cycles; one kernel per
-             instance) at B ∈ {1, 63}, on ``torch-fused``, ``torch-unfused``
-             and ``kernels``: all decode identically and equal the numpy
-             oracle (``sign(A @ x)``, ``A @ x mod 2^16``, the correlation mod
-             2^8). Wall times of a first and a warm run.
+             33}, ``MatvecPlan(1024, 39, 8)`` (9474 cycles) at B ∈ {1, 27},
+             ``ConvPlan(64, 8, 3, 8)`` (9800 cycles; one kernel per
+             instance) at B ∈ {1, 63}, and ``BinaryConvPlan(64, 64, 3)``
+             (515 cycles) and ``(128, 64, 5)`` (1818) at B ∈ {1, 33}, on
+             ``torch-fused``, ``torch-unfused`` and ``kernels`` (binary conv:
+             labelled ``kernels:fallback-torch``): all decode identically
+             and equal the numpy oracle (``sign(A @ x)``, ``A @ x mod
+             2^16``, the correlation mod 2^8, the sign of the ±1
+             correlation). Wall times of a first and a warm run.
 4. serve   — the slice's path: ``PlanService(device="cuda")`` at the
              paper's 1024×1024 geometry on ``backend="kernels"`` and
              ``"torch"``, one flush of ±1 matvec (4096×2048, 1024×384,
              300×500), 8-bit matvec (1024×1024, 300×500), a 16-bit matvec
              (256×256, over the kernels' f32 bound: labelled
-             ``kernels:fallback-torch`` on the kernels service) and 8-bit
+             ``kernels:fallback-torch`` on the kernels service), 8-bit
              conv (two 128×128 with distinct kernels: one plan, one batch;
-             100×60) requests. Launch counts are zeroed just before the
-             kernels service runs and read just after. Every ticket must
-             equal its numpy oracle, with the tiles, cycles and reduce depth
-             the reference gives.
+             100×60) and ±1 binary conv (two 128×128 with one 3×3 kernel:
+             one plan, one batch; 100×60 with a 5×5 kernel; labelled
+             ``kernels:fallback-torch`` on the kernels service) requests.
+             Launch counts are zeroed just before the kernels service runs
+             and read just after. Every ticket must equal its numpy oracle,
+             with the tiles, cycles and reduce depth the reference gives.
+   serve_auto_store — the same requests on ``PlanService(backend="auto",
+             store=<tmp dir>, tunings=TuningTable(<tmp file>))``: a cold
+             flush (plans compiled and stored, each bucket tuned inline), a
+             warm one, a cold one on a fresh service over the same store and
+             file (every plan loaded from the store: ``compile_program``,
+             counted by a wrapper installed here, runs zero times), and one
+             on an ``async_compile=True`` service. Buckets the kernels
+             compute must resolve to ``auto:kernels``, the 16-bit matvec and
+             the binary convs off it; the three kernels' launch counts,
+             zeroed just before the first service and read after its warm
+             flush, must rise. One record: each flush's wall, compiles, span
+             totals and labels, the services' stats.
 5. ops     — ``kernels.ops`` on CUDA tensors: ``matvec``, ``conv2d``,
              ``conv2d(tiled=True)``, ``conv2d_binary`` and ``binary_dense``
              each equal their plain versions exactly, and raise their
@@ -687,9 +704,12 @@ def correlate(img, K, N):
     return out % (1 << N)
 
 
-def engine_case(plan, name, cycles, Bs, make, decode, oracle):
+def engine_case(plan, name, cycles, Bs, make, decode, oracle,
+                kernels_label="kernels"):
     """Run ``plan`` over each batch size on the three device backends; all
-    decode identically and equal ``oracle``."""
+    decode identically and equal ``oracle``. ``kernels_label`` is the
+    label a ``kernels`` run must carry (``kernels:fallback-torch`` for a
+    trace no kernel computes)."""
     t0 = time.perf_counter()
     cp = plan.compile()
     compile_s = time.perf_counter() - t0
@@ -707,7 +727,8 @@ def engine_case(plan, name, cycles, Bs, make, decode, oracle):
                 res = plan.execute_batch(mems, backend=backend,
                                          device="cuda")
                 walls[f"{backend}:{run}"] = (time.perf_counter() - t0) * 1e3
-            check(res.backend == backend and res.cycles == cycles,
+            label = kernels_label if backend == "kernels" else backend
+            check(res.backend == label and res.cycles == cycles,
                   f"{name} {backend}: label {res.backend}, {res.cycles} "
                   f"cycles")
             decoded[backend] = [decode(m) for m in res.mem]
@@ -722,8 +743,30 @@ def engine_case(plan, name, cycles, Bs, make, decode, oracle):
              wall_ms=walls)
 
 
+def sign_correlate(img, K):
+    """sign of the valid ±1 correlation, ties to +1 (the binary conv
+    oracle)."""
+    k = K.shape[-1]
+    oh, ow = img.shape[-2] - k + 1, img.shape[-1] - k + 1
+    acc = np.zeros(img.shape[:-2] + (oh, ow), dtype=np.int64)
+    for v in range(k):
+        for h in range(k):
+            acc += img[..., v:v + oh, h:h + ow] * K[..., v, h, None, None]
+    return np.where(acc >= 0, 1, -1)
+
+
+# fixed ±1 kernels of the binary conv requests and engine rows: the taps
+# are baked into the program, so a fixed kernel keeps the warm rounds warm
+# and the cycle counts known (the reference's, at these kernels)
+BCONV_K3 = np.array([[1, -1, 1], [-1, 1, 1], [1, 1, -1]])
+BCONV_K5 = np.array([[1, -1, 1, 1, -1], [-1, 1, -1, 1, 1],
+                     [1, 1, -1, -1, 1], [-1, 1, 1, -1, 1],
+                     [1, -1, 1, 1, -1]])
+
+
 def phase_engine() -> None:
-    from repro_torch.core import BinaryMatvecPlan, ConvPlan, MatvecPlan
+    from repro_torch.core import (BinaryConvPlan, BinaryMatvecPlan,
+                                  ConvPlan, MatvecPlan)
     rng = np.random.default_rng(1)
 
     bplan = BinaryMatvecPlan(1024, 416)
@@ -752,6 +795,21 @@ def phase_engine() -> None:
                    rng.integers(0, 256, size=(B, 3, 3))),
         lambda m: (cplan.decode_out(m),),
         lambda A, K: [(o,) for o in correlate(A, K, 8)])
+
+    # binary conv: one kernel per program (its taps are in the gates), so
+    # every instance of a batch shares it; no kernel computes the trace
+    for (m, n), K, cycles in (((64, 64), BCONV_K3, 515),
+                              ((128, 64), BCONV_K5, 1818)):
+        bcplan = BinaryConvPlan(m, n, K.shape[0])
+        bcplan.ensure_program(K)
+        engine_case(
+            bcplan, f"BinaryConvPlan({m}, {n}, {K.shape[0]})", cycles,
+            (1, 33),
+            lambda B, m=m, n=n, K=K: (rng.choice([-1, 1], size=(B, m, n)),
+                                      np.broadcast_to(K, (B,) + K.shape)),
+            lambda mem, p=bcplan: (p.decode_out(mem),),
+            lambda A, Ks: [(sign_correlate(a, k),) for a, k in zip(A, Ks)],
+            kernels_label="kernels:fallback-torch")
 
 
 # request name -> (kind, operands, tiles, cycles, reduce depth)
@@ -783,6 +841,14 @@ def serve_requests(rng):
                                      8), 63, 9800, 0),
         "conv 100x60 lap": ("conv", (rng.integers(0, 256, (100, 60)), lap,
                                      8), 33, 9800, 0),
+        # ±1 binary conv (TiledConv2d(binary=True, tile_n=64)): two images
+        # with one kernel share a plan and a batch
+        "bconv 128x128 K3 a": ("binary_conv", (rng.choice(pm, (128, 128)),
+                                               BCONV_K3), 9, 515, 0),
+        "bconv 128x128 K3 b": ("binary_conv", (rng.choice(pm, (128, 128)),
+                                               BCONV_K3), 9, 515, 0),
+        "bconv 100x60 K5": ("binary_conv", (rng.choice(pm, (100, 60)),
+                                            BCONV_K5), 3, 1562, 0),
     }
 
 
@@ -793,6 +859,8 @@ def oracle(kind, args):
     if kind == "matvec":
         A, x, N = args
         return (A.astype(object) @ x.astype(object)) % (1 << (2 * N))
+    if kind == "binary_conv":
+        return sign_correlate(*args)
     img, K, N = args
     return correlate(img, K, N)
 
@@ -860,13 +928,18 @@ def phase_serve() -> dict:
                   and (cycles is None or t.cycles == cycles),
                   f"{name}: {t.n_units} tiles, {t.cycles} cycles, depth "
                   f"{t.reduce_depth}")
-            fallback = backend == "kernels" and name == "mv 256x256 N16"
+            fallback = backend == "kernels" and (name == "mv 256x256 N16"
+                                                 or kind == "binary_conv")
             label = "kernels:fallback-torch" if fallback else backend
             check(t.backend == label, f"{name} labelled {t.backend}, not "
                   f"{label}")
         k1, k2 = tickets["conv 128x128 K1"], tickets["conv 128x128 K2"]
         check(k1.key == k2.key and k1.batch_units == 126,
               "distinct-kernel convs did not share one plan and batch")
+        b1, b2 = tickets["bconv 128x128 K3 a"], tickets["bconv 128x128 K3 b"]
+        b5 = tickets["bconv 100x60 K5"]
+        check(b1.key == b2.key and b1.batch_units == 18 and b5.key != b1.key,
+              "binary convs of one kernel did not share one plan and batch")
         # a warm round: plans cached, replay tables and libraries loaded
         warm, warm_wall, warm_spans = serve_round(
             svc, serve_requests(np.random.default_rng(3)))
@@ -884,6 +957,101 @@ def phase_serve() -> dict:
                                        "batch_wall_s": t.batch_wall_s}
                                 for name, t in warm.items()}})
     return launches
+
+
+# the span totals the serve_auto_store record reports for each flush
+STORE_SPANS = ("serve.plan_build", "serve.load", "engine.execute",
+               "serve.prewarm", "autotune.tune")
+
+
+def auto_labels_ok(reqs, tickets) -> None:
+    """Every bucket the kernels compute resolved to ``kernels``; the 16-bit
+    matvec and the binary convs resolved off it."""
+    for name, (kind, *_) in reqs.items():
+        label = tickets[name].backend
+        off = name == "mv 256x256 N16" or kind == "binary_conv"
+        if off:
+            ok = label.startswith("auto:torch")
+        else:
+            ok = label in ("auto:kernels", "auto:kernels@32")
+        check(ok, f"auto service labelled {name} {label}")
+
+
+def phase_serve_auto_store() -> None:
+    """``backend="auto"`` on a plan store: the serve phase's requests
+    flushed cold (plans compiled and stored, buckets tuned inline), then
+    warm, then on a fresh service over the same store and tunings file
+    (every plan loaded, none compiled), then on an ``async_compile=True``
+    service. ``compile_program`` calls are counted by a wrapper installed
+    here, around the name the plans call."""
+    import tempfile
+
+    import repro_torch.core.plan as plan_mod
+    from repro_torch.core.autotune import TuningTable
+    from repro_torch.serve import PlanService
+    counters = launch_counters()
+    real = plan_mod.compile_program
+    compiles = []
+
+    def counting(*args, **kwargs):
+        compiles.append(1)
+        return real(*args, **kwargs)
+
+    reqs = serve_requests(np.random.default_rng(2))
+    rounds, stats = {}, {}
+    plan_mod.compile_program = counting
+    try:
+        with tempfile.TemporaryDirectory(prefix="matpim_smoke_") as tmp:
+            store, table = Path(tmp) / "plans", Path(tmp) / "tunings.json"
+
+            def service(**kw):
+                return PlanService(backend="auto", tunings=TuningTable(table),
+                                   device="cuda", **kw)
+
+            def run(name, svc):
+                compiles.clear()
+                tickets, wall, spans = serve_round(svc, reqs)
+                auto_labels_ok(reqs, tickets)
+                for req, (kind, args, tiles, cycles, depth) in reqs.items():
+                    t = tickets[req]
+                    check(t.n_units == tiles and t.reduce_depth == depth
+                          and (cycles is None or t.cycles == cycles),
+                          f"{name} {req}: {t.n_units} tiles, {t.cycles} "
+                          f"cycles")
+                rounds[name] = {
+                    "wall_s": wall, "compiles": len(compiles),
+                    "spans_ms": {k: spans.get(k, 0.0) for k in STORE_SPANS},
+                    "labels": {req: t.backend for req, t in tickets.items()}}
+
+            for fn in counters.values():
+                fn.launches = 0
+            svc = service(store=store)
+            run("cold", svc)
+            run("warm", svc)
+            launches = {n: fn.launches for n, fn in counters.items()}
+            svc.close()
+            stats["first"] = svc.stats.as_dict()
+            for n in ("binary_matmul", "splitk_matvec", "conv2d_shift"):
+                check(launches[n] > 0, f"the auto service launched no {n}")
+            fresh = service(store=store)
+            run("restart", fresh)
+            fresh.close()
+            stats["restart"] = fresh.stats.as_dict()
+            check(rounds["restart"]["compiles"] == 0,
+                  f"the restarted service compiled "
+                  f"{rounds['restart']['compiles']} programs")
+            check(fresh.stats.store_hits == fresh.stats.misses > 0,
+                  f"restart: {fresh.stats.store_hits} store hits of "
+                  f"{fresh.stats.misses} misses")
+            pooled = service(store=False, async_compile=True)
+            run("async", pooled)
+            pooled.close()
+            stats["async"] = pooled.stats.as_dict()
+            check(pooled.stats.async_compiles > 0,
+                  "the async service compiled nothing on its pool")
+    finally:
+        plan_mod.compile_program = real
+    emit("serve_auto_store", launches=launches, stats=stats, rounds=rounds)
 
 
 def phase_ops(torch) -> dict:
@@ -960,6 +1128,7 @@ def main() -> int:
     rows = phase_kernels(torch, int_rates(torch))
     phase_engine()
     launches = phase_serve()
+    phase_serve_auto_store()
     launches.update({n: v for n, v in phase_ops(torch).items()
                      if n in ("conv2d_shift_tiled", "binary_conv2d")})
     summary = {"kernels": []}

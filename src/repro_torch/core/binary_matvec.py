@@ -237,10 +237,11 @@ class BinaryMatvecPlan(CrossbarPlan):
         return self.decode_y(out), self.decode_popcount(out), cycles
 
 
-def matpim_binary_matvec(A: np.ndarray, x: np.ndarray, **kw):
+def matpim_binary_matvec(A: np.ndarray, x: np.ndarray,
+                         backend: str = "torch", device="cuda", **kw):
     m, n = A.shape
     plan = BinaryMatvecPlan(m, n, **kw)
-    return plan.run(A, x)
+    return plan.run(A, x, backend=backend, device=device)
 
 
 # ---------------------------------------------------------------------------

@@ -13,9 +13,12 @@ over a batch of B independent crossbars on a torch device:
 * ``kernels`` — runs the *algorithm* an eligible trace encodes on the
   hand-written kernels (see :mod:`.kernel_exec`); ineligible traces replay
   on ``torch`` with the label ``kernels:fallback-torch``.
+* ``auto`` — resolves one of the above per ``(program key, batch bucket)``
+  from the autotuner's tunings table, else its heuristic (see
+  :mod:`.autotune`); results are labelled ``auto:<resolved>[@max_batch]``.
 
-The reference's ``auto`` backend (autotuner), ``tunings`` and ``mesh`` are
-not ported yet: passing them raises ``NotImplementedError``.
+The reference's ``mesh`` (multi-device execution, ``distributed/
+mesh_exec.py``) is not ported: passing it raises ``NotImplementedError``.
 
 Every entry point takes an explicit ``device``, ``"cuda"`` by default. When
 CUDA is missing and the caller did not ask for the CPU, the call raises
@@ -81,31 +84,39 @@ BIT_GATES = (
     (3, lambda a, b, c: ~((a | b) & c)),            # OAI3
 )
 
-# the backends ``execute`` accepts; ``CrossbarPlan`` methods also take
-# "interp" (the host interpreter)
+# the concrete backends ``execute`` runs; it also takes "auto" (see
+# ``available_backends``), and ``CrossbarPlan`` methods take "interp" (the
+# host interpreter)
 BACKENDS = ("torch", "torch-fused", "torch-unfused", "kernels")
 
 
+def available_backends() -> tuple:
+    """Every backend ``execute`` accepts for compiled traces: ``"auto"``
+    and the concrete :data:`BACKENDS`.
+
+    >>> available_backends()
+    ('auto', 'torch', 'torch-fused', 'torch-unfused', 'kernels')
+    """
+    return ("auto",) + BACKENDS
+
+
 def parse_backend(backend: str) -> tuple:
-    """``backend`` → ``(base, variant)`` with base in {torch, kernels} and
-    variant in {auto, fused, unfused}.
+    """``backend`` → ``(base, variant)`` with base in {auto, torch,
+    kernels} and variant in {auto, fused, unfused}.
 
     >>> parse_backend("torch"), parse_backend("torch-unfused")
     (('torch', 'auto'), ('torch', 'unfused'))
-    >>> parse_backend("kernels")
-    ('kernels', 'auto')
+    >>> parse_backend("kernels"), parse_backend("auto")
+    (('kernels', 'auto'), ('auto', 'auto'))
     """
-    if backend == "auto":
-        raise NotImplementedError(
-            "backend='auto' (the autotuner) is not ported to repro_torch yet "
-            "(ROADMAP Queue 1, item 12)")
     base, variant = backend, "auto"
     if backend.endswith("-fused"):
         base, variant = backend[:-len("-fused")], "fused"
     elif backend.endswith("-unfused"):
         base, variant = backend[:-len("-unfused")], "unfused"
-    if base != "torch" and not (base == "kernels" and variant == "auto"):
-        known = ", ".join(repr(b) for b in BACKENDS)
+    if base != "torch" and not (base in ("auto", "kernels")
+                                and variant == "auto"):
+        known = ", ".join(repr(b) for b in available_backends())
         raise ValueError(
             f"unknown engine backend {backend!r}; compiled traces support "
             f"{known} ('interp' is plan-level only: use "
@@ -408,27 +419,40 @@ def execute(
 
     ``faults`` takes a :class:`~repro_torch.device.faults.FaultRealization`
     (explicit per-cycle masks, bit-identical to the reference's numpy
-    replay under the same masks). A ``FaultModel``, ``tunings`` and ``mesh``
-    raise ``NotImplementedError`` in this port.
+    replay under the same masks). A ``FaultModel`` raises
+    ``NotImplementedError``: its sampling (``device/faults.py``) is not
+    ported. So does ``mesh``: multi-device execution
+    (``distributed/mesh_exec.py``) is not ported.
+
+    ``backend="auto"`` resolves a concrete backend (and optionally a
+    span-chunking ``max_batch``) per ``(program key, batch bucket)`` from
+    the tunings table — ``tunings`` (a
+    :class:`repro_torch.core.autotune.TuningTable`) overrides the process
+    default — else the autotuner's heuristic; the result's ``backend``
+    field reads ``"auto:<resolved>[@max_batch]"``. A resolved ``kernels``
+    whose trace the kernels cannot compute keeps the fallback's own label,
+    ``kernels:fallback-torch``.
 
     Telemetry matches the reference: a ``span("engine.execute")`` and the
     ``engine.execute.calls[.<label>]`` counters and
-    ``engine.execute.wall_us.<label>`` histogram in :mod:`repro_torch.obs`.
+    ``engine.execute.wall_us.<label>`` histogram in :mod:`repro_torch.obs`
+    (the label without its ``@max_batch`` suffix).
     """
-    if tunings is not None or mesh is not None:
+    if mesh is not None:
         raise NotImplementedError(
-            "tunings= and mesh= are not ported to repro_torch yet "
-            "(ROADMAP Queue 1, items 12 and 14)")
+            "mesh= needs multi-device execution (distributed/mesh_exec.py), "
+            "which is not ported to repro_torch")
     dev = resolve_device(device)
     t0 = time.perf_counter()
     with _span("engine.execute", backend=backend) as sp:
-        res = _execute_impl(cp, mem, backend, dev, max_batch, faults)
+        res = _execute_impl(cp, mem, backend, dev, max_batch, faults,
+                            tunings)
         sp.set(resolved=res.backend, cycles=res.cycles)
     wall_us = (time.perf_counter() - t0) * 1e6
+    label = res.backend.split("@", 1)[0]
     _metrics.counter("engine.execute.calls").inc()
-    _metrics.counter(f"engine.execute.calls.{res.backend}").inc()
-    _metrics.histogram(f"engine.execute.wall_us.{res.backend}").observe(
-        wall_us)
+    _metrics.counter(f"engine.execute.calls.{label}").inc()
+    _metrics.histogram(f"engine.execute.wall_us.{label}").observe(wall_us)
     if isinstance(faults, FaultRealization):
         _metrics.counter("engine.execute.fault_runs").inc()
     return res
@@ -436,7 +460,7 @@ def execute(
 
 def _execute_impl(cp: CompiledProgram, mem: np.ndarray, backend: str,
                   device: torch.device, max_batch: Optional[int],
-                  faults) -> EngineResult:
+                  faults, tunings=None) -> EngineResult:
     from .fused import run_torch_fused, schedule_for
     from .kernel_exec import kernels_eligible, run_kernels
 
@@ -451,12 +475,21 @@ def _execute_impl(cp: CompiledProgram, mem: np.ndarray, backend: str,
 
     base, variant = parse_backend(backend)
     label = backend
+    if base == "auto":
+        from .autotune import resolve_auto
+        resolved, mb, _src = resolve_auto(cp, mem_t.shape[0], faults=faults,
+                                          table=tunings)
+        base, variant = parse_backend(resolved)
+        if max_batch is None and mb is not None:
+            max_batch = mb
+        label = (f"auto:{resolved}@{mb}" if mb is not None
+                 else f"auto:{resolved}")
     if base == "kernels":
         if kernels_eligible(cp, faults):
             out = run_kernels(cp, mem_t).cpu().numpy()
             return EngineResult(mem=out[0] if squeeze else out,
                                 cycles=cp.n_cycles, stats=dict(cp.stats),
-                                backend="kernels")
+                                backend=label)
         variant, label = "auto", "kernels:fallback-torch"
     B = mem_t.shape[0]
     step = min(B, max(1, int(max_batch))) if max_batch else B

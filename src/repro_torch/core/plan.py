@@ -11,12 +11,13 @@ compiled-execution machinery on top:
 
 ``backend`` is ``"interp"`` (the host interpreter, ``Crossbar.run``, which
 validates every cycle as it executes) or one of the engine backends
-``"torch"``, ``"torch-fused"``, ``"torch-unfused"``, ``"kernels"`` (see
-``engine.execute``), which run on ``device`` (``"cuda"`` by default).
+``"auto"``, ``"torch"``, ``"torch-fused"``, ``"torch-unfused"``,
+``"kernels"`` (see ``engine.execute``), which run on ``device`` (``"cuda"``
+by default).
 
 The compile cache is invalidated whenever ``self.program`` is rebound.
-The reference's ``energy()`` arrives with the device models (ROADMAP
-Queue 1, item 11).
+The reference's ``energy()`` needs the device energy model
+(``device/energy.py``), which is not ported.
 """
 from __future__ import annotations
 
@@ -183,11 +184,13 @@ class CrossbarPlan:
         device="cuda",
         max_batch: Optional[int] = None,
         faults=None,
+        tunings=None,
     ) -> EngineResult:
         """Run this plan's program over ``(B, rows, cols)`` crossbars at once.
 
         ``backend="interp"`` loops the host interpreter over the batch
         (slow; useful for equivalence checks of batched/tiled paths).
+        ``tunings`` is the table ``backend="auto"`` resolves from.
         """
         if backend == "interp":
             self._reject_interp_faults(faults)
@@ -200,4 +203,4 @@ class CrossbarPlan:
             return EngineResult(mem=out, cycles=cycles, stats=stats,
                                 backend="interp")
         return execute(self.compile(), mems, backend=backend, device=device,
-                       max_batch=max_batch, faults=faults)
+                       max_batch=max_batch, faults=faults, tunings=tunings)

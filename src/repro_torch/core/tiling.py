@@ -17,11 +17,12 @@ Padding conventions keep tile programs identical across the grid:
 
 * full-precision matvec/conv pad with zeros (adds 0 mod 2^W / contributes 0);
 * binary matvec pads A and x with +1 — each padded column contributes exactly
-  one XNOR match, subtracted from the reduced popcount on the host.
+  one XNOR match, subtracted from the reduced popcount on the host;
+* binary conv pads the input with +1; affected outputs fall outside the
+  cropped valid region.
 
-The binary conv (``TiledConv2d(binary=True)``, ``tiled_binary_conv2d``)
-arrives with its plan (ROADMAP Queue 1, item 8), and ``energy()`` with the
-device models (item 11).
+The reference's ``energy()`` hooks need the device energy model
+(``device/energy.py``), which is not ported.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from .binary_conv import BinaryConvPlan
 from .binary_matvec import BinaryMatvecPlan
 from .conv import ConvPlan
 from .matvec import MatvecPlan
@@ -317,22 +319,15 @@ def tiled_binary_matvec(A: np.ndarray, x: np.ndarray, backend: str = "torch",
 # ---------------------------------------------------------------------------
 
 
-def _binary_conv_not_ported():
-    return NotImplementedError(
-        "binary conv (BinaryConvPlan) is not ported to repro_torch yet "
-        "(ROADMAP Queue 1, item 8)")
-
-
 class TiledConv2d:
-    """Valid full-precision conv (mod 2^N) of an (H, Wd) image with a k×k
-    kernel, over a grid of ``ConvPlan(tile_m, tile_n, k, N)`` tiles whose
-    inputs overlap by k−1 (halo)."""
+    """Valid conv of an (H, Wd) image with a k×k kernel over a grid of
+    tiles whose inputs overlap by k−1 (halo): full precision (mod 2^N) on
+    ``ConvPlan(tile_m, tile_n, k, N)``, or with ``binary=True`` the ±1 sign
+    map on ``BinaryConvPlan(tile_m, tile_n, k)``."""
 
     def __init__(self, H: int, Wd: int, k: int, N: int, tile_m: int = 64,
                  tile_n: int = 8, binary: bool = False, rows: int = 1024,
                  cols: int = 1024, parts: int = 32, **plan_kw):
-        if binary:
-            raise _binary_conv_not_ported()
         assert tile_m > k - 1 and tile_n > k - 1
         self.H, self.Wd, self.k, self.N = H, Wd, k, N
         self.binary = binary
@@ -342,8 +337,12 @@ class TiledConv2d:
         self.tw_out = tile_n - k + 1
         self.gh = math.ceil(self.oh / self.th_out)
         self.gw = math.ceil(self.ow / self.tw_out)
-        self.plan = ConvPlan(tile_m, tile_n, k, N, rows=rows, cols=cols,
-                             parts=parts, **plan_kw)
+        if binary:
+            self.plan = BinaryConvPlan(tile_m, tile_n, k, rows=rows,
+                                       cols=cols, parts=parts)
+        else:
+            self.plan = ConvPlan(tile_m, tile_n, k, N, rows=rows, cols=cols,
+                                 parts=parts, **plan_kw)
 
     @property
     def n_tiles(self) -> int:
@@ -358,7 +357,8 @@ class TiledConv2d:
         assert A.shape == (H, Wd) and Kk.shape == (k, k)
         Hp = self.gh * self.th_out + k - 1
         Wp = self.gw * self.tw_out + k - 1
-        Ap = np.zeros((Hp, Wp), dtype=np.int64)
+        pad_val = 1 if self.binary else 0
+        Ap = np.full((Hp, Wp), pad_val, dtype=np.int64)
         Ap[:H, :Wd] = A
 
         plan = self.plan
@@ -374,8 +374,9 @@ class TiledConv2d:
             return plan.decode_out(mem)
 
         def finalize(tiles):
+            dtype = np.int64 if self.binary else object
             out = np.zeros((self.gh * self.th_out, self.gw * self.tw_out),
-                           dtype=object)
+                           dtype=dtype)
             for i in range(self.gh):
                 for j in range(self.gw):
                     out[i * self.th_out : (i + 1) * self.th_out,
@@ -415,6 +416,18 @@ def tiled_conv2d(A: np.ndarray, Kk: np.ndarray, N: int, **kw):
 
 
 def tiled_binary_conv2d(A: np.ndarray, Kk: np.ndarray, **kw):
-    """The reference's tiled binary conv; raises until ``BinaryConvPlan``
-    is ported (ROADMAP Queue 1, item 8)."""
-    raise _binary_conv_not_ported()
+    """One-shot tiled ±1 conv (``TiledConv2d(binary=True)``, ``tile_n`` 64
+    unless given); run-time kwargs go to :meth:`TiledConv2d.run`.
+
+    >>> out, info = tiled_binary_conv2d(np.ones((6, 40), dtype=int),
+    ...                                 -np.ones((3, 3), dtype=int),
+    ...                                 tile_m=4, tile_n=32, rows=64,
+    ...                                 cols=256, parts=8, device="cpu")
+    >>> out.shape, sorted(set(out.ravel().tolist())), info.grid
+    ((4, 38), [-1], (2, 2))
+    """
+    H, Wd = A.shape
+    run_kw = _run_kw(kw)
+    kw.setdefault("tile_n", 64)
+    t = TiledConv2d(H, Wd, Kk.shape[0], 1, binary=True, **kw)
+    return t.run(A, Kk, **run_kw)

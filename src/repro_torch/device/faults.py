@@ -12,8 +12,7 @@ host with a numpy ``Generator`` and packed into the canonical word layout
 
 ``FaultModel`` *sampling* inside an executor (the reference's
 ``sample_stuck_words`` and ``_ModelSource``) is not ported yet:
-:func:`make_fault_source` raises ``NotImplementedError`` for a model, and
-ROADMAP Queue 1, item 10 tracks it.
+:func:`make_fault_source` raises ``NotImplementedError`` for a model.
 
 Fault mechanisms (all independent, per crossbar instance): stuck-at-0/1
 cells (``buf = (buf | sa1) & ~sa0`` after the load and after every write),
@@ -260,6 +259,6 @@ def make_fault_source(faults, rng, B: int, rows: int, cols: int):
         return _RealizationSource(faults, rows, cols)
     if isinstance(faults, FaultModel):
         raise NotImplementedError(
-            "FaultModel sampling is not ported to repro_torch yet "
-            "(ROADMAP Queue 1, item 10); pass a FaultRealization instead")
+            "FaultModel sampling (device/faults.py) is not ported to "
+            "repro_torch yet; pass a FaultRealization instead")
     raise TypeError(f"unknown fault specification {type(faults).__name__}")

@@ -24,8 +24,10 @@ from repro.core.compile import compiled_state as ref_state  # noqa: E402
 from repro.device.faults import FaultModel as RefFaultModel  # noqa: E402
 from repro.device.faults import \
     FaultRealization as RefRealization  # noqa: E402
-from repro_torch.core import (BinaryMatvecPlan, compile_program,  # noqa: E402
+from repro_torch.core import (BinaryMatvecPlan,  # noqa: E402
+                              available_backends, compile_program,
                               compiled_from_state, execute, parse_backend)
+from repro_torch.core.autotune import TuningTable  # noqa: E402
 from repro_torch.core import isa  # noqa: E402
 from repro_torch.core.isa import ColOp  # noqa: E402
 from repro_torch.device.faults import (FaultModel,  # noqa: E402
@@ -200,16 +202,22 @@ def test_backend_contracts():
     for bad in ("numpy", "jax", "pallas", "kernels-fused", "interp"):
         with pytest.raises(ValueError):
             parse_backend(bad)
-    with pytest.raises(NotImplementedError):
-        parse_backend("auto")
+    assert parse_backend("auto") == ("auto", "auto")
+    assert available_backends() == ("auto", "torch", "torch-fused",
+                                    "torch-unfused", "kernels")
     cp = compile_program([[ColOp("NOT", (0,), 1, None)]], 8, 8, 1, 1)
     mem = np.zeros((8, 8), np.uint8)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="device/faults.py"):
         execute(cp, mem, device="cpu", faults=FaultModel(p_switch=0.1))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="mesh_exec"):
         execute(cp, mem, device="cpu", mesh=object())
     out = execute(cp, mem, device="cpu").mem
     assert out.shape == (8, 8) and out[:, 1].all()
+    # "auto" is ported: no kernel computes this trace, so it replays fused
+    res = execute(cp, mem, backend="auto", device="cpu",
+                  tunings=TuningTable())
+    assert res.backend == "auto:torch-fused"
+    assert np.array_equal(res.mem, out)
 
 
 def test_cuda_is_the_default_device():

@@ -198,21 +198,29 @@ def test_distinct_kernel_convs_share_one_plan():
 def test_unported_submissions_raise():
     svc = PlanService(device="cpu", **GEOM)
     img, K = np.ones((6, 6), np.int64), np.ones((3, 3), np.int64)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        svc.submit_binary_conv(img, K)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        svc.submit("binary_conv", img, K)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TiledConv2d(6, 6, 3, 1, binary=True, **GEOM)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tiled_binary_conv2d(img, K, **GEOM)
+    # binary conv is ported: the service, the tiled wrapper and the one-shot
+    # call all give the ±1 map (an all-+1 image and kernel: all +1)
+    t1 = svc.submit_binary_conv(img, K)
+    t2 = svc.submit("binary_conv", img, K)
+    svc.flush()
+    assert t1.key == t2.key and t1.batch_units == 2 * t1.n_units
+    out, _ = TiledConv2d(6, 6, 3, 1, binary=True, tile_m=6, tile_n=32,
+                         **GEOM).run(img, K, device="cpu")
+    out2, _ = tiled_binary_conv2d(img, K, tile_m=6, tile_n=32, device="cpu",
+                                  **GEOM)
+    for got in (t1.result, t2.result, out, out2):
+        np.testing.assert_array_equal(got, np.ones((4, 4), np.int64))
+    with pytest.raises(ValueError):
+        svc.submit_binary_conv(img, 2 * K)
     fm = FaultModel(p_switch=0.1)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="device/faults.py"):
         svc.submit_matvec(np.ones((2, 4)), np.ones(4), 4, faults=fm)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="device/faults.py"):
         svc.submit_conv(img, K, 4, faults=fm)
+    with pytest.raises(NotImplementedError, match="device/faults.py"):
+        svc.submit_binary_conv(img, K, faults=fm)
     with pytest.raises(ValueError):
         svc.submit_matvec(np.ones((2, 4)), np.ones(5), 4)
     with pytest.raises(ValueError):
         svc.submit_conv(np.ones((2, 6)), K, 4)
-    assert svc.stats.requests == 0
+    assert svc.stats.requests == 2      # the refused submissions count not

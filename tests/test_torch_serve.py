@@ -16,6 +16,7 @@ from repro.core.tiling import TiledBinaryMatvec as RefTiled  # noqa: E402
 from repro.serve.matpim import PlanService as RefService  # noqa: E402
 from repro.serve.matpim import ServeRequest as RefRequest  # noqa: E402
 from repro_torch.core import TiledBinaryMatvec  # noqa: E402
+from repro_torch.core.autotune import TuningTable  # noqa: E402
 from repro_torch.core.tiling import majority_sign, tree_reduce  # noqa: E402
 from repro_torch.device.faults import FaultModel  # noqa: E402
 from repro_torch.serve import PlanService, ServeRequest  # noqa: E402
@@ -110,17 +111,27 @@ def test_run_stream_matches_reference():
         assert getattr(svc.stats, f) == getattr(ref.stats, f), f
 
 
-def test_service_rejects_what_is_not_ported():
+def test_service_rejects_what_is_not_ported(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             PlanService(**GEOM)              # default device is CUDA
-    for kw in ({"async_compile": True}, {"store": "/nonexistent"},
-               {"devices": 2}, {"backend": "auto"}):
-        with pytest.raises(NotImplementedError):
-            PlanService(device="cpu", **GEOM, **kw)
+    with pytest.raises(NotImplementedError, match="mesh_exec"):
+        PlanService(device="cpu", devices=2, **GEOM)
     with pytest.raises(ValueError):
         PlanService(device="cpu", backend="numpy", **GEOM)
+    # ported since: the autotuner, the compile pool and the plan store
+    A, x = np.ones((3, 10), dtype=int), np.ones(10, dtype=int)
+    for kw, label in (({"async_compile": True}, "torch"),
+                      ({"store": tmp_path / "plans"}, "torch"),
+                      ({"backend": "auto", "tunings": TuningTable()},
+                       "auto:kernels")):
+        svc = PlanService(device="cpu", **GEOM, **kw)
+        t = svc.submit_binary_matvec(A, x)
+        svc.flush()
+        svc.close()
+        assert [int(v) for v in t.result] == [1, 1, 1]
+        assert t.backend == label
     svc = PlanService(device="cpu", **GEOM)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="device/faults.py"):
         svc.submit_binary_matvec(np.ones((2, 8)), np.ones(8),
                                  faults=FaultModel(p_switch=0.1))
