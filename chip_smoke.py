@@ -81,6 +81,31 @@ each printing one JSON line per record:
              ``conv2d(tiled=True)``, ``conv2d_binary`` and ``binary_dense``
              each equal their plain versions exactly, and raise their
              kernels' launch counts, zeroed just before and read just after.
+6. apps    — the application layer at full width on ``backend="kernels"``:
+             ``BinaryMLP.random([512, 2048, 2048, 2048, 32])`` (the
+             ``matpim-bnn`` config's unreduced widths on the reference's
+             256×512 crossbars of 16 partitions), ``forward`` of one input
+             and ``forward_batch`` of 64, equal to ``model.reference``; a
+             ``Pipeline([MatvecStage(A, 8)])`` over a 1024×1024 8-bit A
+             (``A @ x mod 2^16``); ``edge_pipeline``, ``sharpen_pipeline``
+             and ``binary_edge_pipeline`` on a 512×512 4-bit image, equal to
+             their host references. Per run: stage labels (``kernels``;
+             ``kernels:fallback-torch`` for the binary convs), report cycles
+             and nJ, wall, launches. ``binary_matmul``, ``splitk_matvec``
+             and ``conv2d_shift`` counts, zeroed just before the phase and
+             read just after, must rise.
+7. faults  — ``FaultModel`` runs on ``device="cuda"`` and ``"cpu"`` with
+             the same seeds, bit-identical: ``binary_matvec_sweep([0,
+             1e-4, 1e-3, 1e-2])`` at its defaults on ``torch-fused`` and
+             ``torch-unfused`` (equal to each other; rate 0 fault-free),
+             ``bnn_accuracy_sweep`` at its defaults, ``tmr_binary_matvec(
+             1e-3, samples=256)``, ``fault_sweep`` of the reduced 3-layer
+             BNN at 128 samples, and a ``PlanService(seed=0,
+             backend="kernels")`` flush of two faulty binary-matvec
+             requests (labelled ``kernels:fallback-torch``) and a
+             fault-free one (``kernels``). Per run and device: the wall and
+             the host's mask drawing and copying (``engine.fault.draw`` /
+             ``engine.fault.copy`` span totals) as a share of it.
 
 Then the per-kernel summary line ``{"kernels": [...]}`` (``launches`` from
 the serve phase for binary_matmul, splitk_matvec and conv2d_shift, from the
@@ -1099,6 +1124,215 @@ def phase_ops(torch) -> dict:
     return launches
 
 
+# the apps record's launch counts: the three kernels the application
+# pipelines reach on backend="kernels"
+APP_KERNELS = ("binary_matmul", "splitk_matvec", "conv2d_shift")
+
+
+def timed_launches(torch, fn):
+    """``fn()``, its wall (ending in a device sync) and each kernel's
+    launches during it."""
+    counters = launch_counters()
+    before = {n: f.launches for n, f in counters.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, wall, {n: f.launches - before[n]
+                       for n, f in counters.items()}
+
+
+def stage_record(rep, wall, launches) -> dict:
+    """One pipeline run: each stage's label, the report's cycles and nJ,
+    the wall and the launches."""
+    return {"labels": {s.name: s.backend for s in rep.stages},
+            "cycles": rep.cycles, "energy_nj": rep.energy_nj,
+            "stage_cycles": {s.name: s.total_cycles for s in rep.stages},
+            "wall_s": wall, "launches": launches}
+
+
+def phase_apps(torch) -> dict:
+    """The slice's application path at full width on ``backend="kernels"``:
+    ``MATPIM_BNN``'s unreduced widths (512 → 2048 → 2048 → 2048 → 32, the
+    reference's 256×512 crossbars of 16 partitions) on one input and on a
+    batch of 64, a 1024×1024 8-bit matvec pipeline at the service's
+    1024×1024 geometry, and the edge, sharpen and binary edge pipelines on
+    a 512×512 4-bit image. Every output equals its numpy oracle; the three
+    kernels' counts, zeroed just before and read just after, must rise."""
+    from repro_torch.apps.bnn import BinaryMLP
+    from repro_torch.apps.imaging import (BINARY_KERNELS, KERNELS,
+                                          binary_edge_pipeline,
+                                          edge_pipeline, edge_reference,
+                                          ref_correlate, sharpen_pipeline)
+    from repro_torch.apps.pipeline import MatvecStage, Pipeline
+    counters = launch_counters()
+    rng = np.random.default_rng(40)
+    records = {}
+    for fn in counters.values():
+        fn.launches = 0
+
+    model, build_s, _ = timed_launches(
+        torch, lambda: BinaryMLP.random([512, 2048, 2048, 2048, 32], seed=0))
+    x = rng.choice([-1, 1], size=512)
+    (y, rep), wall, launched = timed_launches(
+        torch, lambda: model.forward(x, backend="kernels"))
+    want_y, want_dots = model.reference(x)
+    check(np.array_equal(y, want_y) and np.array_equal(model.scores,
+                                                       want_dots),
+          "BNN forward != its numpy reference")
+    records["bnn_forward"] = dict(stage_record(rep, wall, launched),
+                                  build_s=build_s, dims=model.dims)
+    X = rng.choice([-1, 1], size=(64, 512))
+    (dots, acts), wall, launched = timed_launches(
+        torch, lambda: model.forward_batch(X, backend="kernels"))
+    a = X
+    for W in model.weights[:-1]:
+        a = np.where(a @ W.T >= 0, 1, -1)
+    check(np.array_equal(dots, a @ model.weights[-1].T),
+          "BNN forward_batch != its numpy reference")
+    records["bnn_forward_batch"] = {"inputs": 64, "wall_s": wall,
+                                    "launches": launched}
+
+    A = rng.integers(0, 256, size=(1024, 1024))
+    xv = rng.integers(0, 256, size=1024)
+    pipe = Pipeline([MatvecStage(A, 8)], name="matvec")
+    (yv, rep), wall, launched = timed_launches(
+        torch, lambda: pipe.run(xv, backend="kernels"))
+    check(np.array_equal(np.asarray(yv, dtype=np.int64),
+                         (A @ xv) % (1 << 16)),
+          "matvec pipeline != A @ x mod 2^16")
+    records["matvec"] = stage_record(rep, wall, launched)
+
+    img = rng.integers(0, 16, size=(512, 512))
+    binar = np.where(img > 7, 1, -1)
+    oracles = {
+        "edge": (edge_pipeline, edge_reference(img)),
+        "sharpen": (sharpen_pipeline,
+                    np.clip(ref_correlate(img, KERNELS["sharpen"]), 0, 15)),
+        "binary_edge": (binary_edge_pipeline, np.maximum(
+            *(np.where(ref_correlate(binar, BINARY_KERNELS[k]) >= 0, 1, -1)
+              for k in ("edge_v", "edge_h")))),
+    }
+    for name, (make, want) in oracles.items():
+        pipe = make(img.shape)
+        (out, rep), wall, launched = timed_launches(
+            torch, lambda: pipe.run(img, backend="kernels"))
+        check(np.array_equal(np.asarray(out, dtype=np.int64), want),
+              f"{name} pipeline != its host reference")
+        labels = [s.backend for s in rep.stages if s.kind != "host"]
+        want_label = ("kernels:fallback-torch" if name == "binary_edge"
+                      else "kernels")
+        check(labels == [want_label] * len(labels),
+              f"{name} pipeline labelled {labels}")
+        records[name] = stage_record(rep, wall, launched)
+    launches = {n: fn.launches for n, fn in counters.items()}
+    for n in APP_KERNELS:
+        check(launches[n] > 0, f"the apps phase launched no {n}")
+    emit("apps", launches=launches, runs=records)
+    return launches
+
+
+FAULT_SPANS = ("engine.fault.draw", "engine.fault.copy")
+
+
+def fault_run(torch, fn) -> dict:
+    """``fn()`` on each of the card and the CPU under the tracer: its
+    result per device, the walls and the host mask-drawing and copy
+    shares (the ``engine.fault.*`` span totals over the wall)."""
+    from repro_torch.obs import trace
+    out, rec = {}, {}
+    for dev in ("cuda", "cpu"):
+        tr = trace.enable()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            out[dev] = fn(dev)
+            torch.cuda.synchronize()
+        finally:
+            trace.disable()
+        wall = time.perf_counter() - t0
+        spans = {k: 0.0 for k in FAULT_SPANS}
+        for ev in tr.events():
+            if ev["name"] in spans:
+                spans[ev["name"]] += ev["dur"] / 1e6
+        rec[dev] = {"wall_s": wall,
+                    "draw_s": spans["engine.fault.draw"],
+                    "copy_s": spans["engine.fault.copy"],
+                    "draw_copy_share": sum(spans.values()) / wall}
+    return out, rec
+
+
+def points(pts) -> list:
+    return [[p.rate, p.samples, p.bit_error_rate, p.sign_error_rate,
+             p.accuracy] for p in pts]
+
+
+def phase_faults(torch) -> None:
+    """``FaultModel`` runs on the card and on the CPU with the same seeds:
+    every output must be bit-identical (every mask is drawn on the host).
+    The Monte-Carlo sweeps at their defaults on both replay variants, TMR,
+    the BNN fault sweep, and a ``PlanService(seed=0, backend="kernels")``
+    flush of two faulty binary-matvec requests and one fault-free one."""
+    import dataclasses
+
+    from repro_torch.apps.bnn import BinaryMLP, fault_sweep
+    from repro_torch.device import (FaultModel, binary_matvec_sweep,
+                                    bnn_accuracy_sweep, tmr_binary_matvec)
+    from repro_torch.serve import PlanService
+    rates = [0.0, 1e-4, 1e-3, 1e-2]
+    records, first = {}, None
+    for variant in ("fused", "unfused"):
+        out, rec = fault_run(torch, lambda d: points(binary_matvec_sweep(
+            rates, backend=f"torch-{variant}", device=d)))
+        check(out["cuda"] == out["cpu"],
+              f"binary_matvec_sweep torch-{variant}: card != CPU")
+        first = first or out["cuda"]
+        check(out["cuda"] == first, "binary_matvec_sweep: fused != unfused")
+        check(out["cuda"][0][2:4] == [0.0, 0.0],
+              "binary_matvec_sweep: rate 0 != the fault-free run")
+        records[f"binary_matvec_sweep:{variant}"] = dict(rec,
+                                                         points=out["cuda"])
+    out, rec = fault_run(torch, lambda d: points(
+        bnn_accuracy_sweep(rates, device=d)))
+    check(out["cuda"] == out["cpu"], "bnn_accuracy_sweep: card != CPU")
+    check(out["cuda"][0][4] == 1.0, "bnn_accuracy_sweep: rate 0 not exact")
+    records["bnn_accuracy_sweep"] = dict(rec, points=out["cuda"])
+    out, rec = fault_run(torch, lambda d: dataclasses.asdict(
+        tmr_binary_matvec(1e-3, samples=256, device=d)))
+    check(out["cuda"] == out["cpu"], "tmr_binary_matvec: card != CPU")
+    records["tmr"] = dict(rec, report=out["cuda"])
+    model = BinaryMLP.from_config(n_layers=3)
+    out, rec = fault_run(torch, lambda d: points(
+        fault_sweep(model, [1e-4, 1e-3], samples=128, device=d)))
+    check(out["cuda"] == out["cpu"], "fault_sweep: card != CPU")
+    records["fault_sweep"] = dict(rec, points=out["cuda"])
+
+    rng = np.random.default_rng(41)
+    reqs = [(rng.choice([-1, 1], (1024, 384)), rng.choice([-1, 1], 384)),
+            (rng.choice([-1, 1], (300, 500)), rng.choice([-1, 1], 500)),
+            (rng.choice([-1, 1], (1024, 384)), rng.choice([-1, 1], 384))]
+
+    def flush(dev):
+        svc = PlanService(seed=0, backend="kernels", device=dev)
+        tickets = [svc.submit_binary_matvec(
+            A, x, faults=FaultModel.uniform(3e-3) if i < 2 else None)
+            for i, (A, x) in enumerate(reqs)]
+        svc.flush()
+        return [(t.result.tolist(), t.backend) for t in tickets]
+
+    out, rec = fault_run(torch, flush)
+    check(out["cuda"] == out["cpu"], "faulty service flush: card != CPU")
+    labels = [b for _, b in out["cuda"]]
+    check(labels == ["kernels:fallback-torch"] * 2 + ["kernels"],
+          f"faulty service flush labelled {labels}")
+    A, x = reqs[2]
+    check(out["cuda"][2][0] == np.where(A @ x >= 0, 1, -1).tolist(),
+          "the fault-free request != sign(A @ x)")
+    records["service_flush"] = dict(rec, labels=labels)
+    emit("faults", runs=records)
+
+
 SOURCES = {
     "binary_matmul": ("src/repro_torch/csrc/binary_matmul.cu",
                       "src/repro/kernels/binary_matmul.py:63"),
@@ -1131,6 +1365,8 @@ def main() -> int:
     phase_serve_auto_store()
     launches.update({n: v for n, v in phase_ops(torch).items()
                      if n in ("conv2d_shift_tiled", "binary_conv2d")})
+    phase_apps(torch)
+    phase_faults(torch)
     summary = {"kernels": []}
     for name in COUNTED:
         main_row = rows[name][0]

@@ -37,7 +37,10 @@ the numpy boundary. Every FELIX gate is a short boolean word expression
 constant-0 gather slot; writes never touch them.
 
 All backends are bit-identical to the reference's numpy executors in final
-memory, cycle count and op-category stats (``tests/test_torch_engine.py``).
+memory, cycle count and op-category stats (``tests/test_torch_engine.py``),
+and so are fault runs: a ``FaultRealization`` under the same masks, a
+``FaultModel`` under the same seed, its masks drawn on the host in the
+reference's numpy order and chunking (``tests/test_torch_faults.py``).
 """
 from __future__ import annotations
 
@@ -48,7 +51,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..device.faults import FaultRealization, make_fault_source
+from ..device.faults import (FaultModel, FaultRealization, as_rng,
+                             make_fault_source)
 from ..obs import metrics as _metrics
 from ..obs.trace import span as _span
 from .compile import MODE_COL, MODE_INIT, MODE_ROW, CompiledProgram
@@ -217,7 +221,24 @@ class _Group:
     ins: torch.Tensor        # (n, arity) gathered lines
     mask: torch.Tensor       # (n, R1) col mode / (C1, n) row mode, bool
     full: bool               # every write mask selects all real lines
-    t_runs: list             # [(t, compile slots)] in op order (faults)
+    frow: np.ndarray         # (n,) rows of the step's fault words (faults)
+    frow_t: Optional[torch.Tensor] = None   # ``frow`` on the device, lazily
+
+
+@dataclasses.dataclass
+class _Step:
+    """One replay step's gate groups and its switching-failure draw.
+
+    ``blocks`` lists the step's ops by (cycle, gate id), cycle ascending and
+    gate id ascending within a cycle — the reference's draw order — as
+    ``(t, compile slots, n)``; row ``j`` of a block is the ``j``-th op of
+    that gate at cycle ``t`` in slot order. Every op is drawn, duplicate
+    destinations included, and each group picks its kept ops' rows out of
+    the concatenated draw through ``frow``.
+    """
+
+    groups: List[_Group]
+    blocks: list
 
 
 def _full_mask_ids(masks: np.ndarray, size: int) -> frozenset:
@@ -240,34 +261,44 @@ def _keep_last(dst: np.ndarray) -> np.ndarray:
     return np.sort(len(dst) - 1 - first_rev)
 
 
-def _group(cp: CompiledProgram, mode: int, gid: int, dst, ins, sel, ts,
-           slots, full_ids: frozenset, device) -> _Group:
+def _group(cp: CompiledProgram, mode: int, gid: int, dst, ins, sel, frow,
+           full_ids: frozenset, device) -> _Group:
     keep = _keep_last(dst)
-    dst, ins, sel, ts, slots = dst[keep], ins[keep], sel[keep], ts[keep], \
-        slots[keep]
+    dst, ins, sel, frow = dst[keep], ins[keep], sel[keep], frow[keep]
     arity = BIT_GATES[gid][0]
     mask = (cp.row_masks[sel] if mode == MODE_COL else cp.col_masks[sel].T)
-    t_runs = [(int(t), slots[ts == t]) for t in np.unique(ts)]
     return _Group(
         gid=int(gid), arity=arity,
         dst=torch.from_numpy(np.ascontiguousarray(dst, np.int64)).to(device),
         ins=torch.from_numpy(
             np.ascontiguousarray(ins[:, :arity], np.int64)).to(device),
         mask=torch.from_numpy(np.ascontiguousarray(mask)).to(device),
-        full=all(int(s) in full_ids for s in sel), t_runs=t_runs)
+        full=all(int(s) in full_ids for s in sel),
+        frow=np.ascontiguousarray(frow, np.int64))
 
 
 def _step_groups(cp: CompiledProgram, mode: int, gates, dsts, inss, sels,
-                 ts, slots, device) -> List[_Group]:
+                 ts, slots, device) -> _Step:
     """One replay step's ops (concatenated in cycle-major order) grouped by
-    gate id."""
+    gate id, with the step's fault blocks."""
     full_ids = _full_mask_ids(cp.row_masks if mode == MODE_COL
                               else cp.col_masks,
                               cp.rows if mode == MODE_COL else cp.cols)
-    return [_group(cp, mode, gid, *(a[gates == gid] for a in
-                                    (dsts, inss, sels, ts, slots)),
-                   full_ids=full_ids, device=device)
-            for gid in np.unique(gates)]
+    # draw order: cycle, then gate id, then position in the step
+    n = len(gates)
+    order = np.lexsort((np.arange(n), gates, ts))
+    frow = np.empty(n, np.int64)
+    frow[order] = np.arange(n)
+    t_o, g_o = ts[order], gates[order]
+    cuts = np.flatnonzero((t_o[1:] != t_o[:-1]) | (g_o[1:] != g_o[:-1]))
+    bounds = np.unique(np.r_[0, cuts + 1, n])     # [0] for an empty step
+    blocks = [(int(t_o[a]), slots[order[a:b]], int(b - a))
+              for a, b in zip(bounds[:-1], bounds[1:])]
+    groups = [_group(cp, mode, gid, *(a[gates == gid] for a in
+                                      (dsts, inss, sels, frow)),
+                     full_ids=full_ids, device=device)
+              for gid in np.unique(gates)]
+    return _Step(groups=groups, blocks=blocks)
 
 
 def _init_entries(cp: CompiledProgram, t: int, device) -> list:
@@ -306,14 +337,37 @@ def _cycle_plan(cp: CompiledProgram, device) -> list:
     return plan
 
 
-def _fail_words(src, g: _Group, mode: int, device) -> torch.Tensor:
-    """Switching-failure words for group ``g``: (W, n, R1) in col mode,
-    (W, C1, n) in row mode."""
-    if mode == MODE_COL:
-        parts = [src.switch_col(t, s, len(s)) for t, s in g.t_runs]
-        return words_to_device(np.concatenate(parts, axis=1), device)
-    parts = [src.switch_row(t, s, len(s)) for t, s in g.t_runs]
-    return words_to_device(np.concatenate(parts, axis=2), device)
+def _fail_words(src, step: _Step, mode: int, device) -> torch.Tensor:
+    """The step's switching-failure words, drawn block by block in the
+    reference's order and moved to ``device`` in one copy: (W, n, R1) in
+    col mode, (W, C1, n) in row mode, ``n`` the step's ops."""
+    with _span("engine.fault.draw"):
+        if mode == MODE_COL:
+            words = np.concatenate([src.switch_col(t, s, n)
+                                    for t, s, n in step.blocks], axis=1)
+        else:
+            words = np.concatenate([src.switch_row(t, s, n)
+                                    for t, s, n in step.blocks], axis=2)
+    with _span("engine.fault.copy"):
+        return words_to_device(words, device)
+
+
+def _stuck_words(src, device):
+    """The source's (sa0, sa1) stuck maps on ``device``."""
+    with _span("engine.fault.draw"):
+        sa = src.stuck()
+    with _span("engine.fault.copy"):
+        return tuple(words_to_device(a, device) for a in sa)
+
+
+def _init_flip(src, t: int, i: int, c_np, r_np, device):
+    """Disturb-flip words of init entry ``i`` of cycle ``t``, or None."""
+    with _span("engine.fault.draw"):
+        flip = src.init_flip(t, i, c_np, r_np)
+    if flip is None:
+        return None
+    with _span("engine.fault.copy"):
+        return words_to_device(flip, device)
 
 
 def _replay(cp: CompiledProgram, buf: torch.Tensor, plan: list, src) -> None:
@@ -323,30 +377,36 @@ def _replay(cp: CompiledProgram, buf: torch.Tensor, plan: list, src) -> None:
     any group scatters, exactly like the interpreter's within-cycle rule
     (and the fused spans' pre-span reads). ``src`` is a fault source or
     ``None``; with faults the ``full`` shortcut is skipped, as in the
-    reference's faulty replay.
+    reference's faulty replay. Masks are asked of ``src`` in the
+    reference's order (stuck maps, then each step's blocks and init
+    entries as the trace goes), which a ``FaultModel`` source's draws rely
+    on.
     """
     R, C = cp.rows, cp.cols
     dev = buf.device
     if src is not None:
-        sa0, sa1 = (words_to_device(a, dev) for a in src.stuck())
+        sa0, sa1 = _stuck_words(src, dev)
         buf.copy_((buf | sa1) & ~sa0)            # cells are stuck from t=0
-    for mode, items in plan:
+    for mode, item in plan:
         if mode == MODE_INIT:
-            for ci, ri, v, t, i, c_np, r_np in items:
+            for ci, ri, v, t, i, c_np, r_np in item:
                 if src is None:
                     buf[:, ci, ri] = -1 if v else 0
                     continue
                 blk = torch.full((buf.shape[0], len(c_np), len(r_np)),
                                  -1 if v else 0, dtype=torch.int32,
                                  device=dev)
-                flip = src.init_flip(t, i, c_np, r_np)
+                flip = _init_flip(src, t, i, c_np, r_np, dev)
                 if flip is not None:
-                    blk ^= words_to_device(flip, dev)
+                    blk ^= flip
                 buf[:, ci, ri] = (blk | sa1[:, ci, ri]) & ~sa0[:, ci, ri]
             continue
         col = mode == MODE_COL
+        fail = (_fail_words(src, item, mode, dev)
+                if src is not None and src.has_switch and item.blocks
+                else None)
         outs = []
-        for g in items:
+        for g in item.groups:
             if col:
                 x = buf[:, g.ins]                  # (W, n, arity, R1)
                 lines = (x[:, :, k] for k in range(g.arity))
@@ -354,7 +414,7 @@ def _replay(cp: CompiledProgram, buf: torch.Tensor, plan: list, src) -> None:
                 x = buf[:, :, g.ins]               # (W, C1, n, arity)
                 lines = (x[..., k] for k in range(g.arity))
             outs.append(BIT_GATES[g.gid][1](*lines))
-        for g, out in zip(items, outs):
+        for g, out in zip(item.groups, outs):
             if src is None and g.full:
                 # data lines only: the const-0 row/column must stay zero
                 if col:
@@ -365,9 +425,11 @@ def _replay(cp: CompiledProgram, buf: torch.Tensor, plan: list, src) -> None:
             old = buf[:, g.dst] if col else buf[:, :, g.dst]
             new = torch.where(g.mask, out, old)
             if src is not None:
-                if src.has_switch:
-                    fail = _fail_words(src, g, mode, dev)
-                    new = (old & fail) | (new & ~fail)
+                if fail is not None:
+                    if g.frow_t is None:
+                        g.frow_t = torch.from_numpy(g.frow).to(dev)
+                    fw = fail[:, g.frow_t] if col else fail[:, :, g.frow_t]
+                    new = (old & fw) | (new & ~fw)
                 s0 = sa0[:, g.dst] if col else sa0[:, :, g.dst]
                 s1 = sa1[:, g.dst] if col else sa1[:, :, g.dst]
                 new = (new | s1) & ~s0
@@ -378,19 +440,20 @@ def _replay(cp: CompiledProgram, buf: torch.Tensor, plan: list, src) -> None:
 
 
 def run_plan(cp: CompiledProgram, mem: torch.Tensor, plan: list,
-             faults=None) -> torch.Tensor:
-    """Pack ``mem`` (B, R, C) uint8 on its device, replay ``plan``, unpack."""
+             faults=None, rng=None) -> torch.Tensor:
+    """Pack ``mem`` (B, R, C) uint8 on its device, replay ``plan``, unpack.
+    A ``FaultModel`` draws its masks from ``rng``."""
     B = mem.shape[0]
-    src = make_fault_source(faults, None, B, cp.rows, cp.cols)
+    src = make_fault_source(faults, rng, B, cp.rows, cp.cols)
     buf = _pack(mem)
     _replay(cp, buf, plan, src)
     return _unpack(buf, B, cp.rows, cp.cols)
 
 
 def run_torch_unfused(cp: CompiledProgram, mem: torch.Tensor,
-                      faults=None) -> torch.Tensor:
+                      faults=None, rng=None) -> torch.Tensor:
     """Per-cycle replay of ``cp`` over ``mem`` (B, R, C) uint8 on a device."""
-    return run_plan(cp, mem, _cycle_plan(cp, mem.device), faults)
+    return run_plan(cp, mem, _cycle_plan(cp, mem.device), faults, rng)
 
 
 # ---------------------------------------------------------------------------
@@ -405,6 +468,7 @@ def execute(
     device="cuda",
     max_batch: Optional[int] = None,
     faults=None,
+    rng=None,
     tunings=None,
     mesh=None,
 ) -> EngineResult:
@@ -413,15 +477,27 @@ def execute(
     ``mem`` is ``(B, rows, cols)`` (or ``(rows, cols)`` for B=1) uint8
     initial state on the host; it is not mutated. The batch moves to the
     device once, packs into the canonical ``(W, cols+1, rows+1)`` word
-    layout and runs in one executor call (``max_batch`` splits it into
-    chunks); the final memory comes back as a host array. Every chunk runs
-    the identical program, so the reported cycle count is unchanged.
+    layout and runs in one executor call; only ``max_batch`` and
+    ``FaultModel`` runs split it into chunks. Every chunk runs the
+    identical program, so the reported cycle count is unchanged; the final
+    memory comes back as a host array.
 
-    ``faults`` takes a :class:`~repro_torch.device.faults.FaultRealization`
-    (explicit per-cycle masks, bit-identical to the reference's numpy
-    replay under the same masks). A ``FaultModel`` raises
-    ``NotImplementedError``: its sampling (``device/faults.py``) is not
-    ported. So does ``mesh``: multi-device execution
+    ``faults`` selects a device model: a
+    :class:`~repro_torch.device.faults.FaultModel` (each crossbar draws an
+    independent realization — stuck-at maps, per-gate switching failures,
+    init disturb — from ``rng``: ``None`` / seed / Generator) or an
+    explicit :class:`~repro_torch.device.faults.FaultRealization`. Both are
+    bit-identical to the reference's ``backend="numpy"`` replays: a
+    realization under the same masks, a model under the same seed, because
+    a model run chunks the batch at the reference's numpy width (64
+    crossbars, then ``max_batch``), threads one stream across the chunks
+    and draws every mask on the host in the reference's order. The
+    reference's jax fault path threads ``jax.random`` keys, which torch
+    cannot reproduce. Fault runs never reach the kernels (``kernels``
+    replays them as ``kernels:fallback-torch``; ``auto`` resolves
+    ``torch``). The fault machinery runs even for the ideal model, which is
+    bit-identical to ``faults=None``, and never adds cycles. ``mesh``
+    raises ``NotImplementedError``: multi-device execution
     (``distributed/mesh_exec.py``) is not ported.
 
     ``backend="auto"`` resolves a concrete backend (and optionally a
@@ -433,10 +509,13 @@ def execute(
     whose trace the kernels cannot compute keeps the fallback's own label,
     ``kernels:fallback-torch``.
 
-    Telemetry matches the reference: a ``span("engine.execute")`` and the
+    Telemetry matches the reference: a ``span("engine.execute")``, the
     ``engine.execute.calls[.<label>]`` counters and
     ``engine.execute.wall_us.<label>`` histogram in :mod:`repro_torch.obs`
-    (the label without its ``@max_batch`` suffix).
+    (the label without its ``@max_batch`` suffix), and for a fault run the
+    ``engine.execute.fault_runs`` counter plus, for a non-ideal model, the
+    ``engine.fault.p_*`` gauges. Host mask drawing and its copies to the
+    device run under ``engine.fault.draw`` and ``engine.fault.copy`` spans.
     """
     if mesh is not None:
         raise NotImplementedError(
@@ -445,7 +524,7 @@ def execute(
     dev = resolve_device(device)
     t0 = time.perf_counter()
     with _span("engine.execute", backend=backend) as sp:
-        res = _execute_impl(cp, mem, backend, dev, max_batch, faults,
+        res = _execute_impl(cp, mem, backend, dev, max_batch, faults, rng,
                             tunings)
         sp.set(resolved=res.backend, cycles=res.cycles)
     wall_us = (time.perf_counter() - t0) * 1e6
@@ -453,14 +532,20 @@ def execute(
     _metrics.counter("engine.execute.calls").inc()
     _metrics.counter(f"engine.execute.calls.{label}").inc()
     _metrics.histogram(f"engine.execute.wall_us.{label}").observe(wall_us)
-    if isinstance(faults, FaultRealization):
+    if isinstance(faults, FaultModel) and not faults.is_ideal:
+        _metrics.counter("engine.execute.fault_runs").inc()
+        _metrics.gauge("engine.fault.p_sa0").set(faults.p_sa0)
+        _metrics.gauge("engine.fault.p_sa1").set(faults.p_sa1)
+        _metrics.gauge("engine.fault.p_switch").set(faults.p_switch)
+        _metrics.gauge("engine.fault.p_init").set(faults.p_init)
+    elif isinstance(faults, FaultRealization):
         _metrics.counter("engine.execute.fault_runs").inc()
     return res
 
 
 def _execute_impl(cp: CompiledProgram, mem: np.ndarray, backend: str,
                   device: torch.device, max_batch: Optional[int],
-                  faults, tunings=None) -> EngineResult:
+                  faults, rng=None, tunings=None) -> EngineResult:
     from .fused import run_torch_fused, schedule_for
     from .kernel_exec import kernels_eligible, run_kernels
 
@@ -492,7 +577,11 @@ def _execute_impl(cp: CompiledProgram, mem: np.ndarray, backend: str,
                                 backend=label)
         variant, label = "auto", "kernels:fallback-torch"
     B = mem_t.shape[0]
-    step = min(B, max(1, int(max_batch))) if max_batch else B
+    # FaultModel sampling depends on the chunking: keep the reference's
+    # numpy chunk width so same-seed draws stay bit-identical
+    step = min(64, B) if isinstance(faults, FaultModel) else B
+    if max_batch:
+        step = min(step, max(1, int(max_batch)))
     if variant == "auto":
         variant = ("fused" if isinstance(faults, FaultRealization)
                    or cp.schedule is not None else "unfused")
@@ -503,13 +592,14 @@ def _execute_impl(cp: CompiledProgram, mem: np.ndarray, backend: str,
             f"FaultRealization batch {faults.batch} != memory batch {B}; "
             f"sample the realization for the batch it will run under")
 
+    rng = as_rng(rng) if isinstance(faults, FaultModel) else None
     run = run_torch_fused if variant == "fused" else run_torch_unfused
     chunks = []
     for i in range(0, B, step):
         sub = mem_t[i:i + step]
         f = (faults.narrow(i, i + sub.shape[0])
              if isinstance(faults, FaultRealization) else faults)
-        chunks.append(run(cp, sub, f))
+        chunks.append(run(cp, sub, f, rng))
     out = (chunks[0] if len(chunks) == 1 else torch.cat(chunks)).cpu().numpy()
     return EngineResult(mem=out[0] if squeeze else out, cycles=cp.n_cycles,
                         stats=dict(cp.stats), backend=label, faults=faults)

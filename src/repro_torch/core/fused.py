@@ -9,9 +9,13 @@ carry their own, usually much narrower, width). It is the counterpart of
 the reference's ``run_numpy_fused``, with its snapshot rule: every group of
 a span gathers against pre-span memory before any group scatters.
 
-A :class:`~repro_torch.device.faults.FaultRealization` carries explicit
-per-cycle masks; each group looks its ops' masks up by original cycle and
-compile slot, so a faulty fused replay equals the faulty per-cycle replay.
+Faults are drawn per span step in the per-cycle order: every (cycle, gate
+id) block of the span, cycle ascending and gate id ascending within a
+cycle, into one word array that each gate group indexes — so a
+``FaultModel`` consumes its numpy stream exactly as the per-cycle replay
+and the reference's numpy replays do, and a ``FaultRealization`` (explicit
+masks looked up by original cycle and compile slot) gives the same masks
+however the replay is batched.
 
 Cycle accounting is untouched by construction: fusion changes how many
 *simulator* steps replay the trace, never how many *hardware* cycles the
@@ -82,10 +86,11 @@ def _fused_plan(cp: CompiledProgram, device) -> list:
 
 
 def run_torch_fused(cp: CompiledProgram, mem: torch.Tensor,
-                    faults=None) -> torch.Tensor:
+                    faults=None, rng=None) -> torch.Tensor:
     """Fused replay of ``cp`` over ``mem`` (B, R, C) uint8 on its device.
 
     Bit-identical to the per-cycle executor and to the reference's numpy
-    replays, with or without a ``FaultRealization``.
+    replays, with or without faults; a ``FaultModel`` draws from ``rng`` in
+    the per-cycle order (see :class:`~repro_torch.core.engine._Step`).
     """
-    return run_plan(cp, mem, _fused_plan(cp, mem.device), faults)
+    return run_plan(cp, mem, _fused_plan(cp, mem.device), faults, rng)

@@ -113,9 +113,9 @@ def host_io_cycles(read_cols: int, write_cols: int = 0) -> int:
     a grid have independent peripheral circuits and transfer concurrently, so
     callers pass per-tile column counts, not grid totals.
 
-    This is the latency half of the reference's inter-stage data-movement
-    model (``repro.apps.pipeline``); its energy half, priced per *cell*, is
-    in the device energy model, which the port does not carry yet.
+    This is the latency half of the inter-stage data-movement model of
+    :mod:`repro_torch.apps.pipeline`; its energy half, priced per *cell*,
+    is :func:`repro_torch.device.energy.io_energy_fj`.
 
     >>> host_io_cycles(6)        # read back a 6-column accumulator field
     6

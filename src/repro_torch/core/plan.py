@@ -16,8 +16,8 @@ validates every cycle as it executes) or one of the engine backends
 by default).
 
 The compile cache is invalidated whenever ``self.program`` is rebound.
-The reference's ``energy()`` needs the device energy model
-(``device/energy.py``), which is not ported.
+``plan.energy(profile)`` prices the compiled trace with the static energy
+model (:mod:`repro_torch.device.energy`).
 """
 from __future__ import annotations
 
@@ -113,6 +113,18 @@ class CrossbarPlan:
         if self._compiled is not None:
             self._compiled.clear_caches()
 
+    # -- device models -------------------------------------------------------
+
+    def energy(self, profile=None):
+        """Switching-energy/EDP report for this plan's compiled trace.
+
+        ``profile`` is a :class:`repro_torch.device.energy.DeviceProfile`,
+        a profile name, or ``None`` (VTEAM-like default). Static accounting:
+        derived from the trace's write masks, no execution needed.
+        """
+        from ..device.energy import trace_energy
+        return trace_energy(self.compile(), profile)
+
     # -- execution -----------------------------------------------------------
 
     def new_crossbar(self) -> Crossbar:
@@ -133,13 +145,16 @@ class CrossbarPlan:
         backend: str = "torch",
         device="cuda",
         faults=None,
+        rng=None,
     ) -> Tuple[np.ndarray, int, Dict[str, int]]:
         """Run this plan's program over one crossbar image ``mem``.
 
         Returns (final mem, cycle count, stats). Passing ``xbar`` (or
         ``backend="interp"``) runs the host interpreter, replacing the
         crossbar's memory with ``mem`` and resetting its counters, so every
-        call reports THIS run's accounting.
+        call reports THIS run's accounting. ``faults``/``rng`` select a
+        stochastic device model (compiled backends only; see
+        ``engine.execute``).
         """
         if xbar is not None or backend == "interp":
             self._reject_interp_faults(faults)
@@ -147,7 +162,7 @@ class CrossbarPlan:
             xb.mem[:, :] = mem
             return self._run_interp(xb, self.program)
         res = execute(self.compile(), mem, backend=backend, device=device,
-                      faults=faults)
+                      faults=faults, rng=rng)
         return res.mem, res.cycles, res.stats
 
     @staticmethod
@@ -184,13 +199,17 @@ class CrossbarPlan:
         device="cuda",
         max_batch: Optional[int] = None,
         faults=None,
+        rng=None,
         tunings=None,
     ) -> EngineResult:
         """Run this plan's program over ``(B, rows, cols)`` crossbars at once.
 
         ``backend="interp"`` loops the host interpreter over the batch
         (slow; useful for equivalence checks of batched/tiled paths).
-        ``tunings`` is the table ``backend="auto"`` resolves from.
+        With ``faults``, every crossbar in the batch draws an independent
+        fault realization from ``rng`` — the Monte-Carlo axis of
+        :mod:`repro_torch.device`. ``tunings`` is the table
+        ``backend="auto"`` resolves from.
         """
         if backend == "interp":
             self._reject_interp_faults(faults)
@@ -203,4 +222,5 @@ class CrossbarPlan:
             return EngineResult(mem=out, cycles=cycles, stats=stats,
                                 backend="interp")
         return execute(self.compile(), mems, backend=backend, device=device,
-                       max_batch=max_batch, faults=faults, tunings=tunings)
+                       max_batch=max_batch, faults=faults, rng=rng,
+                       tunings=tunings)

@@ -21,8 +21,9 @@ Padding conventions keep tile programs identical across the grid:
 * binary conv pads the input with +1; affected outputs fall outside the
   cropped valid region.
 
-The reference's ``energy()`` hooks need the device energy model
-(``device/energy.py``), which is not ported.
+Every wrapper prices one tile with ``energy()`` (the static trace energy of
+:mod:`repro_torch.device.energy`; the grid total is ``n_tiles`` times it),
+the hook the application pipelines charge each stage with.
 """
 from __future__ import annotations
 
@@ -45,6 +46,24 @@ class TiledResult:
     cycles: int                # per-tile program length (tiles run in lockstep)
     reduce_depth: int          # host tree-reduction levels (0 = none needed)
     backend: str               # engine-resolved label (e.g. "kernels")
+
+
+class _TiledEnergyMixin:
+    """Shared device-model hooks for the matvec wrappers.
+
+    The grid runs ONE compiled program on every tile, so the per-tile trace
+    energy is a single static pricing pass and the grid total is a multiply
+    — the hook :mod:`repro_torch.apps.pipeline` uses to charge each stage.
+    """
+
+    @property
+    def n_tiles(self) -> int:
+        return self.gm * self.gk
+
+    def energy(self, profile=None):
+        """Per-tile :class:`~repro_torch.device.energy.EnergyReport` (grid
+        total = ``report.total_fj * self.n_tiles``)."""
+        return self.plan.energy(profile)
 
 
 def tree_reduce(parts: List[np.ndarray]) -> Tuple[np.ndarray, int]:
@@ -76,13 +95,17 @@ def majority_sign(pop: np.ndarray, n: int) -> np.ndarray:
 
 def _execute_tiles(plan, n_tiles: int, load_tile, decode_tile,
                    backend: str, max_batch: Optional[int], faults=None,
-                   device="cuda"):
+                   rng=None, device="cuda"):
     """Load/execute/decode tiles in bounded-size batches.
 
     Chunking only bounds host memory — every chunk runs the identical
     compiled program, so the reported in-array latency (one program length,
-    all tiles in lockstep) is unchanged.
+    all tiles in lockstep) is unchanged. With ``faults``, every tile draws
+    an independent device-fault realization from ONE stream shared across
+    the chunks (``rng``: ``None`` / seed / Generator), as in the reference.
     """
+    if faults is not None:
+        rng = np.random.default_rng(rng)  # one stream across all chunks
     step = max_batch or 64
     results = [None] * n_tiles
     cycles = 0
@@ -93,7 +116,7 @@ def _execute_tiles(plan, n_tiles: int, load_tile, decode_tile,
         for b in range(s, e):
             load_tile(b, mems[b - s])
         res = plan.execute_batch(mems, backend=backend, device=device,
-                                 faults=faults)
+                                 faults=faults, rng=rng)
         cycles = res.cycles
         label = res.backend
         for b in range(s, e):
@@ -114,10 +137,10 @@ def max_matvec_block(N: int, cols: int = 1024, parts: int = 32) -> int:
 
 
 def _run_kw(kw):
-    """Split run-time kwargs (backend/max_batch/faults/device) from plan
+    """Split run-time kwargs (backend/max_batch/faults/rng/device) from plan
     kwargs."""
     return {k: kw.pop(k)
-            for k in ("backend", "max_batch", "faults", "device")
+            for k in ("backend", "max_batch", "faults", "rng", "device")
             if k in kw}
 
 
@@ -126,7 +149,7 @@ def _run_kw(kw):
 # ---------------------------------------------------------------------------
 
 
-class TiledMatvec:
+class TiledMatvec(_TiledEnergyMixin):
     """y = A @ x mod 2^(2N), A (M, K) and x (K,) N-bit unsigned, over a
     tile grid of ``MatvecPlan(tile_m, tile_k, N)`` (α = 1)."""
 
@@ -140,10 +163,6 @@ class TiledMatvec:
         self.gk = math.ceil(K / self.tile_k)
         self.plan = MatvecPlan(self.tile_m, self.tile_k, N, alpha=1,
                                rows=rows, cols=cols, parts=parts)
-
-    @property
-    def n_tiles(self) -> int:
-        return self.gm * self.gk
 
     def bind(self, A: np.ndarray, x: np.ndarray) -> Tuple:
         """Deferred-execution view of :meth:`run`.
@@ -184,12 +203,12 @@ class TiledMatvec:
         return load, decode, finalize
 
     def run(self, A: np.ndarray, x: np.ndarray, backend: str = "torch",
-            max_batch: Optional[int] = None, faults=None,
+            max_batch: Optional[int] = None, faults=None, rng=None,
             device="cuda") -> Tuple[np.ndarray, TiledResult]:
         load, decode, finalize = self.bind(A, x)
         partials, cycles, label = _execute_tiles(
             self.plan, self.n_tiles, load, decode, backend, max_batch,
-            faults, device)
+            faults, rng, device)
         y, depth = finalize(partials)
         return y, TiledResult((self.gm, self.gk), self.n_tiles, cycles,
                               depth, label)
@@ -197,8 +216,9 @@ class TiledMatvec:
 
 def tiled_matvec(A: np.ndarray, x: np.ndarray, N: int, **kw):
     """One-shot tiled full-precision matvec (see :class:`TiledMatvec`);
-    run-time kwargs (``backend``, ``max_batch``, ``faults``, ``device``)
-    go to :meth:`TiledMatvec.run`, the rest to its constructor.
+    run-time kwargs (``backend``, ``max_batch``, ``faults``, ``rng``,
+    ``device``) go to :meth:`TiledMatvec.run`, the rest to its
+    constructor.
 
     >>> y, info = tiled_matvec(np.full((4, 6), 3), np.arange(6), 4,
     ...                        tile_k=4, rows=64, cols=256, parts=8,
@@ -217,7 +237,7 @@ def tiled_matvec(A: np.ndarray, x: np.ndarray, N: int, **kw):
 # ---------------------------------------------------------------------------
 
 
-class TiledBinaryMatvec:
+class TiledBinaryMatvec(_TiledEnergyMixin):
     """y = sign(<A[r], x>), A (M, K), x (K,) in {-1, +1}, over a tile grid."""
 
     def __init__(self, M: int, K: int, tile_m: Optional[int] = None,
@@ -235,10 +255,6 @@ class TiledBinaryMatvec:
         self.gk = math.ceil(K / self.tile_k)
         self.plan = BinaryMatvecPlan(self.tile_m, self.tile_k,
                                      rows=rows, cols=cols, parts=parts)
-
-    @property
-    def n_tiles(self) -> int:
-        return self.gm * self.gk
 
     def bind(self, A: np.ndarray, x: np.ndarray) -> Tuple:
         """Deferred-execution view of :meth:`run`.
@@ -282,22 +298,70 @@ class TiledBinaryMatvec:
         return load, decode, finalize
 
     def run(self, A: np.ndarray, x: np.ndarray, backend: str = "torch",
-            max_batch: Optional[int] = None, faults=None,
+            max_batch: Optional[int] = None, faults=None, rng=None,
             device="cuda") -> Tuple[np.ndarray, TiledResult]:
         load, decode, finalize = self.bind(A, x)
         partials, cycles, label = _execute_tiles(
             self.plan, self.n_tiles, load, decode, backend, max_batch,
-            faults, device)
+            faults, rng, device)
         pop_flat, depth = finalize(partials)
         y = majority_sign(pop_flat, self.K)
         self.last_popcounts = pop_flat  # XNOR matches per row (dot = 2*pop - K)
         return y, TiledResult((self.gm, self.gk), self.n_tiles, cycles,
                               depth, label)
 
+    def popcounts(self, A: np.ndarray, x: np.ndarray, backend: str = "torch",
+                  device="cuda") -> np.ndarray:
+        """Per-row XNOR popcounts (so ⟨A[r], x⟩ = 2·pop[r] − K)."""
+        self.run(A, x, backend=backend, device=device)
+        return self.last_popcounts
+
+    def popcounts_many(self, A: np.ndarray, X: np.ndarray,
+                       backend: str = "torch",
+                       max_batch: Optional[int] = None, faults=None,
+                       rng=None, device="cuda") -> np.ndarray:
+        """Popcounts of one A against J vectors: X is (J, K), returns (J, M).
+
+        All J · gm · gk (vector, tile) pairs execute as engine batches of
+        64 tiles (``max_batch``), vector-major — one launch per batch on
+        the ``kernels`` backend; with ``faults`` every (vector, tile) pair
+        draws an independent realization from one shared stream.
+        """
+        M, K = self.M, self.K
+        tm, tk, gm, gk = self.tile_m, self.tile_k, self.gm, self.gk
+        J = X.shape[0]
+        assert A.shape == (M, K) and X.shape == (J, K)
+        Ap = np.ones((gm * tm, gk * tk), dtype=np.int64)
+        Ap[:M, :K] = A
+        Xp = np.ones((J, gk * tk), dtype=np.int64)
+        Xp[:, :K] = X
+        n_pad = gk * tk - K
+        plan = self.plan
+
+        def load(b, mem):
+            j, rest = divmod(b, gm * gk)
+            i, kk = divmod(rest, gk)
+            plan.load_into(mem, Ap[i * tm : (i + 1) * tm,
+                                   kk * tk : (kk + 1) * tk],
+                           Xp[j, kk * tk : (kk + 1) * tk])
+
+        partials, _, _ = _execute_tiles(
+            plan, J * gm * gk, load,
+            lambda b, mem: plan.decode_popcount(mem).astype(np.int64),
+            backend, max_batch, faults, rng, device)
+
+        pop = np.empty((J, gm * tm), dtype=np.int64)
+        for j in range(J):
+            for i in range(gm):
+                s = (j * gm + i) * gk
+                total, _ = tree_reduce(partials[s : s + gk])
+                pop[j, i * tm : (i + 1) * tm] = total - n_pad
+        return pop[:, :M]
+
 
 def tiled_binary_matvec(A: np.ndarray, x: np.ndarray, backend: str = "torch",
                         max_batch: Optional[int] = None, faults=None,
-                        device="cuda", **kw):
+                        rng=None, device="cuda", **kw):
     """One-shot tiled ±1 matvec (see :class:`TiledBinaryMatvec`); ``kw``
     goes to its constructor.
 
@@ -310,7 +374,7 @@ def tiled_binary_matvec(A: np.ndarray, x: np.ndarray, backend: str = "torch",
     M, K = A.shape
     t = TiledBinaryMatvec(M, K, **kw)
     return t.run(A, x, backend=backend, max_batch=max_batch, faults=faults,
-                 device=device)
+                 rng=rng, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -347,6 +411,13 @@ class TiledConv2d:
     @property
     def n_tiles(self) -> int:
         return self.gh * self.gw
+
+    def energy(self, profile=None, K: Optional[np.ndarray] = None):
+        """Per-tile trace energy; conv programs specialize on the kernel, so
+        pass ``K`` (or run once) before pricing."""
+        if K is not None:
+            self.plan.ensure_program(K)
+        return self.plan.energy(profile)
 
     def bind(self, A: np.ndarray, Kk: np.ndarray) -> Tuple:
         """Deferred-execution view of :meth:`run` (see
@@ -387,12 +458,12 @@ class TiledConv2d:
         return load, decode, finalize
 
     def run(self, A: np.ndarray, Kk: np.ndarray, backend: str = "torch",
-            max_batch: Optional[int] = None, faults=None,
+            max_batch: Optional[int] = None, faults=None, rng=None,
             device="cuda") -> Tuple[np.ndarray, TiledResult]:
         load, decode, finalize = self.bind(A, Kk)
         tiles, cycles, label = _execute_tiles(
             self.plan, self.n_tiles, load, decode, backend, max_batch,
-            faults, device)
+            faults, rng, device)
         out, _ = finalize(tiles)
         return out, TiledResult(
             (self.gh, self.gw), self.n_tiles, cycles, 0, label)

@@ -1,18 +1,20 @@
 """Device-fault state for the torch executors.
 
-Half of ``src/repro/device/faults.py``.
+The port of ``src/repro/device/faults.py``: the :class:`FaultModel`
+dataclass, ``IDEAL``, ``as_rng``, the packed Bernoulli helpers, explicit
+:class:`FaultRealization` masks, and the two fault sources the replay
+consumes. Every mask is drawn on the host from a numpy ``Generator`` and
+packed into the canonical word layout (uint32 words with a leading ``W =
+ceil(B/32)`` axis, bit ``b`` of word ``w`` = crossbar ``32w + b``); the
+executors move each mask to the device.
 
-The port carries the part of the reference module its executors import:
-the :class:`FaultModel` dataclass, ``IDEAL``, ``as_rng``, the packed
-Bernoulli helpers, and explicit :class:`FaultRealization` masks with the
-realization source the replay consumes. Realizations are sampled on the
-host with a numpy ``Generator`` and packed into the canonical word layout
-(uint32 words with a leading ``W = ceil(B/32)`` axis, bit ``b`` of word
-``w`` = crossbar ``32w + b``); the executors move them to the device.
-
-``FaultModel`` *sampling* inside an executor (the reference's
-``sample_stuck_words`` and ``_ModelSource``) is not ported yet:
-:func:`make_fault_source` raises ``NotImplementedError`` for a model.
+A :class:`FaultModel` is sampled inside the executors (``_ModelSource``)
+in the reference's numpy-path order: the stuck-at maps first, then cycle
+ascending and, within a cycle, gate id ascending, one draw of every op of
+that gate (duplicate destinations included). So the same seed gives the
+same bits as the reference's ``backend="numpy"``, fused or unfused. The
+reference's ``backend="jax"`` fault path threads ``jax.random`` keys
+instead, which torch cannot reproduce: nothing here is held against it.
 
 Fault mechanisms (all independent, per crossbar instance): stuck-at-0/1
 cells (``buf = (buf | sa1) & ~sa0`` after the load and after every write),
@@ -188,7 +190,7 @@ class FaultRealization:
 
     def stuck_words(self) -> Tuple[np.ndarray, np.ndarray]:
         """(sa0, sa1) packed to (W, C+1, R+1) canonical buffer layout,
-        sacrificial lines fault-free."""
+        sacrificial lines fault-free (cf. ``sample_stuck_words``)."""
         B, R, C = self.sa0.shape
         W = -(-B // 32)
         sa0 = np.zeros((W, C + 1, R + 1), dtype=np.uint32)
@@ -212,15 +214,73 @@ class FaultRealization:
         return out
 
 
+def sample_stuck_words(
+    model: FaultModel, B: int, rows: int, cols: int,
+    rng: np.random.Generator,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Sample per-instance stuck-at maps, packed into executor-buffer shape.
+
+    Returns ``(sa0, sa1)`` of shape ``(W, cols + 1, rows + 1)`` — the
+    canonical transposed buffer layout of ``engine._pack`` — with the
+    sacrificial extra row/column fault-free (they are simulation artifacts,
+    not physical cells). A cell is stuck-at-0 with ``p_sa0``, stuck-at-1
+    with ``p_sa1``, exclusively; nothing is drawn when both are 0.
+
+    >>> sa0, sa1 = sample_stuck_words(FaultModel(p_sa1=1.0), 33, 2, 3,
+    ...                               as_rng(0))
+    >>> sa0.shape, int(sa0.max()), [hex(int(w)) for w in sa1[:, 0, 0]]
+    ((2, 4, 3), 0, ['0xffffffff', '0x1'])
+    """
+    sa0 = np.zeros((-(-B // 32), cols + 1, rows + 1), dtype=np.uint32)
+    sa1 = np.zeros_like(sa0)
+    if model.p_sa0 > 0.0 or model.p_sa1 > 0.0:
+        u = rng.random((B, rows, cols))
+        sa0[:, :cols, :rows] = pack_sample_bits(
+            u < model.p_sa0).transpose(0, 2, 1)
+        sa1[:, :cols, :rows] = pack_sample_bits(
+            (u >= model.p_sa0) & (u < model.p_sa0 + model.p_sa1)
+        ).transpose(0, 2, 1)
+    return sa0, sa1
+
+
 # ---------------------------------------------------------------------------
 # Fault sources: the word-mask protocol the executors consume
 # ---------------------------------------------------------------------------
 #
 # The torch executors (per-cycle and fused) read faults through a source
 # object that yields host-side packed uint32 masks per original cycle; the
-# executor moves each mask to its device. Only the realization source is
-# ported; the reference's model source (numpy RNG draws in cycle-then-gate
-# order) arrives with FaultModel sampling.
+# executor moves each mask to its device. The model source draws on demand
+# from the numpy RNG, so the ORDER of the calls is the contract: the
+# executors ask for the stuck maps first, then for every (cycle, gate id)
+# block with cycle ascending and gate id ascending within the cycle, and for
+# every init entry of an init cycle in entry order — the reference's order,
+# so a model run is bit-identical to the reference's numpy replay.
+
+
+class _ModelSource:
+    def __init__(self, model: FaultModel, rng, B: int, rows: int, cols: int):
+        self.model = model
+        self.rng = as_rng(rng)
+        self.B, self.rows, self.cols = B, rows, cols
+        self.has_switch = model.p_switch > 0.0
+
+    def stuck(self) -> Tuple[np.ndarray, np.ndarray]:
+        return sample_stuck_words(self.model, self.B, self.rows, self.cols,
+                                  self.rng)
+
+    def switch_col(self, t: int, slots, n: int) -> np.ndarray:
+        return bernoulli_words(self.rng, self.model.p_switch,
+                               (n, self.rows + 1), self.B)
+
+    def switch_row(self, t: int, slots, n: int) -> np.ndarray:
+        return bernoulli_words(self.rng, self.model.p_switch,
+                               (self.cols + 1, n), self.B)
+
+    def init_flip(self, t: int, i: int, c_idx, r_idx):
+        if not self.model.p_init:
+            return None
+        return bernoulli_words(self.rng, self.model.p_init,
+                               (len(c_idx), len(r_idx)), self.B)
 
 
 class _RealizationSource:
@@ -249,16 +309,14 @@ class _RealizationSource:
 
 
 def make_fault_source(faults, rng, B: int, rows: int, cols: int):
-    """``None`` | :class:`FaultRealization` → source (or ``None`` for
-    fault-free execution). Every mask the source yields is in the canonical
-    (W, ...) uint32 packed layout. A :class:`FaultModel` raises: sampling
-    inside the executors is not ported yet."""
+    """``None`` | :class:`FaultModel` | :class:`FaultRealization` → source
+    (or ``None`` for fault-free execution). Every mask the source yields is
+    in the canonical (W, ...) uint32 packed layout; a model source draws
+    from ``rng`` (``None`` / seed / Generator)."""
     if faults is None:
         return None
     if isinstance(faults, FaultRealization):
         return _RealizationSource(faults, rows, cols)
     if isinstance(faults, FaultModel):
-        raise NotImplementedError(
-            "FaultModel sampling (device/faults.py) is not ported to "
-            "repro_torch yet; pass a FaultRealization instead")
+        return _ModelSource(faults, rng, B, rows, cols)
     raise TypeError(f"unknown fault specification {type(faults).__name__}")

@@ -33,10 +33,19 @@ first batch (``prewarm``). ``backend="auto"`` picks a backend per
 (program, batch bucket) from the autotuner's table, timing the candidates
 inline on a cold pair (:mod:`repro_torch.core.autotune`).
 
-Not ported yet (each raises): multi-device dispatch (``devices > 1``,
-``distributed/mesh_exec.py``) and ``FaultModel`` requests (sampling in
-``device/faults.py``). ``FaultRealization`` requests coalesce by
-concatenating their masks along the batch axis.
+Fault requests: requests under equal fault models
+(:class:`~repro_torch.device.faults.FaultModel`) batch together, each
+crossbar drawing an independent realization from the service's one
+sampling stream (``seed=``), so a stream of requests gives the reference
+service's bits under the same seed;
+``FaultRealization`` requests coalesce by concatenating their masks along
+the batch axis. Fault buckets replay on ``torch`` (the kernels take no
+faults). Not ported yet: multi-device dispatch (``devices > 1``,
+``distributed/mesh_exec.py``) raises.
+
+:meth:`PlanService.tiled` is the pipeline-facing fetch (exact shapes, no
+bucketing), and :func:`get_default_service` the process-wide service the
+application pipelines (:mod:`repro_torch.apps`) fetch their plans from.
 
 >>> import numpy as np
 >>> svc = PlanService(rows=64, cols=256, parts=8, device="cpu")
@@ -65,7 +74,7 @@ from ..core.fused import prewarm_replay
 from ..core.kernel_exec import kernels_eligible
 from ..core.tiling import (TiledBinaryMatvec, TiledConv2d, TiledMatvec,
                            majority_sign)
-from ..device.faults import FaultModel, FaultRealization
+from ..device.faults import FaultRealization
 from ..obs import metrics as _metrics
 from ..obs.trace import span as _span
 from .compile_pool import CompilePool
@@ -191,8 +200,10 @@ class PlanService:
     by default; without CUDA the constructor raises unless ``device="cpu"``).
     ``max_plans`` bounds the cache: the least-recently-used plan is dropped
     (and its executor caches cleared) past the bound. ``bucket=False``
-    disables shape bucketing. A coarse re-entrant lock makes submit, flush
-    and step safe to call from several threads; execution is serial.
+    disables shape bucketing. ``seed`` seeds the one numpy stream every
+    ``FaultModel`` bucket draws from, in execution order. A coarse
+    re-entrant lock makes submit, flush and step safe to call from several
+    threads; execution is serial.
 
     ``backend="auto"`` consults the autotuner's table per (program, batch
     bucket): ``tunings`` pins a :class:`~repro_torch.core.autotune.
@@ -207,12 +218,17 @@ class PlanService:
     jobs. ``prewarm`` (default: on with a store or async compile) builds a
     landed plan's device replay tables on the landing thread before its
     first batch.
+
+    ``tiled()`` is the pipeline-facing fetch: an exact-shape, exact-kwargs
+    cached constructor for the tiled wrappers, shared across stages and
+    pipelines (see ``apps/pipeline.py``).
     """
 
     def __init__(self, max_plans: int = 32, backend: str = "torch",
                  fuse: bool = True, rows: int = 1024, cols: int = 1024,
                  parts: int = 32, bucket: bool = True, bucket_floor: int = 8,
-                 max_batch: Optional[int] = None, max_starve_steps: int = 4,
+                 max_batch: Optional[int] = None, seed: Optional[int] = 0,
+                 max_starve_steps: int = 4,
                  device="cuda", tunings=None, autotune: Optional[bool] = None,
                  async_compile: bool = False, compile_workers: int = 2,
                  compile_queue: int = 8, store=None,
@@ -247,6 +263,7 @@ class PlanService:
         self._queue: List[_Pending] = []
         self._uid = 0
         self._step = 0
+        self._rng = np.random.default_rng(seed)  # FaultModel sampling stream
         if store is None:
             self.store: Optional[PlanStore] = get_default_store()
         elif store is False:
@@ -299,8 +316,11 @@ class PlanService:
             with _span("serve.plan_build", key=repr(key)):
                 w = factory()
                 # compile here (store load, else lowering) unless the async
-                # path took the job: then its cost accrues when it lands
-                if not self._compile_async(key, w):
+                # path took the job: then its cost accrues when it lands. A
+                # conv wrapper fetched by tiled() has no program until its
+                # stage binds the kernel; it compiles at its first run
+                if w.plan.program is not None \
+                        and not self._compile_async(key, w):
                     stored = self._compile_sync(key, w)
             dt = time.perf_counter() - t0
             self.stats.compile_s += dt
@@ -435,6 +455,26 @@ class PlanService:
             landed += 1
         return landed
 
+    def tiled(self, kind: str, *args, key_extra=None, **kw):
+        """Cached tiled-wrapper fetch (exact shapes, no bucketing).
+
+        ``kind`` is ``"matvec"`` / ``"binary_matvec"`` / ``"conv"``; ``args``
+        and ``kw`` go to the wrapper constructor and form the cache key
+        together with ``key_extra`` (pipeline conv stages pass their kernel
+        bytes: a stage binds one kernel for its lifetime, and
+        kernel-dependent programs must never share a wrapper across
+        kernels). The service's own geometry supplies the ``rows`` /
+        ``cols`` / ``parts`` defaults (callers may override per fetch), so
+        the resolved geometry is always part of the key.
+        """
+        factories = {"matvec": TiledMatvec, "binary_matvec": TiledBinaryMatvec,
+                     "conv": TiledConv2d}
+        for name, v in zip(("rows", "cols", "parts"), self.geometry):
+            kw.setdefault(name, v)
+        key = ("tiled", kind, args, key_extra, tuple(sorted(kw.items())),
+               self.fuse, self.backend)
+        return self._get_plan(key, lambda: factories[kind](*args, **kw))
+
     # -- request submission --------------------------------------------------
 
     def _bucket2(self, m: int, k: int) -> Tuple[int, int]:
@@ -471,17 +511,8 @@ class PlanService:
         return getattr(self, f"submit_{kind}")(*args, **kw)
 
     @staticmethod
-    def _reject_fault_model(faults) -> None:
-        if isinstance(faults, FaultModel):
-            raise NotImplementedError(
-                "FaultModel sampling (device/faults.py) is not ported to "
-                "repro_torch yet; pass a FaultRealization")
-
-    @classmethod
-    def _operands(cls, A, x, faults) -> Tuple[np.ndarray, np.ndarray]:
-        """Matvec operands as arrays, shapes checked; FaultModel requests
-        raise."""
-        cls._reject_fault_model(faults)
+    def _operands(A, x) -> Tuple[np.ndarray, np.ndarray]:
+        """Matvec operands as arrays, shapes checked."""
         A = np.asarray(A)
         x = np.asarray(x)
         if A.ndim != 2 or x.shape != (A.shape[1],):
@@ -492,7 +523,7 @@ class PlanService:
     def submit_binary_matvec(self, A: np.ndarray, x: np.ndarray,
                              faults=None) -> Ticket:
         """±1 matvec ``y = sign(A @ x)``; result is the (m,) sign vector."""
-        A, x = self._operands(A, x, faults)
+        A, x = self._operands(A, x)
         m, k = A.shape
         Mb, Kb = self._bucket2(m, k)
         rows, cols, parts = self.geometry
@@ -519,7 +550,7 @@ class PlanService:
     def submit_matvec(self, A: np.ndarray, x: np.ndarray, N: int,
                       faults=None) -> Ticket:
         """Full-precision ``y = A @ x mod 2^(2N)`` (N-bit operands)."""
-        A, x = self._operands(A, x, faults)
+        A, x = self._operands(A, x)
         m, k = A.shape
         Mb, Kb = self._bucket2(m, k)
         rows, cols, parts = self.geometry
@@ -542,7 +573,6 @@ class PlanService:
 
     def _submit_conv(self, kind: str, img: np.ndarray, K: np.ndarray,
                      N: int, binary: bool, faults) -> Ticket:
-        self._reject_fault_model(faults)
         img = np.asarray(img)
         K = np.asarray(K, dtype=np.int64)
         H, Wd = img.shape
@@ -625,10 +655,16 @@ class PlanService:
 
     @staticmethod
     def _exec_key(p: _Pending) -> tuple:
-        # requests coalesce when they share the plan AND the fault kind:
-        # explicit realizations batch with each other (masks concatenate),
-        # ideal runs with ideal
-        f = "realization" if p.faults is not None else "ideal"
+        # requests coalesce only when they share the plan AND a compatible
+        # fault specification: equal FaultModels batch together
+        # (independent per-crossbar draws), explicit realizations batch
+        # with each other (masks concatenate), ideal runs with ideal
+        if p.faults is None:
+            f = ("ideal",)
+        elif isinstance(p.faults, FaultRealization):
+            f = ("realization",)
+        else:
+            f = ("model", p.faults)
         return (p.ticket.key, f)
 
     def _buckets(self, ready_only: bool = True) \
@@ -644,7 +680,7 @@ class PlanService:
             out.setdefault(self._exec_key(p), []).append(p)
         return out
 
-    def _execute_bucket(self, plan, mems: np.ndarray, faults):
+    def _execute_bucket(self, plan, mems: np.ndarray, faults, rng):
         """One engine call for a coalesced bucket; the autotuner's
         observation point when the service runs ``backend="auto"``.
 
@@ -682,7 +718,7 @@ class PlanService:
         return plan.execute_batch(mems, backend=self.backend,
                                   device=self.device,
                                   max_batch=self.max_batch, faults=faults,
-                                  tunings=self.tunings)
+                                  rng=rng, tunings=self.tunings)
 
     def _run_bucket(self, pends: List[_Pending]) -> List[Ticket]:
         """Coalesce one bucket onto the engine batch axis and scatter back
@@ -700,13 +736,15 @@ class PlanService:
                     for b in range(p.ticket.n_units):
                         p.load(b, mems[off + b])
                     off += p.ticket.n_units
-            faults = None
-            if pends[0].faults is not None:
+            faults = rng = None
+            if isinstance(pends[0].faults, FaultRealization):
                 faults = _concat_realizations([p.faults for p in pends])
+            elif pends[0].faults is not None:
+                faults, rng = pends[0].faults, self._rng
             warm_up = not getattr(w, "_served_once", False)
             w._served_once = True
             t0 = time.perf_counter()
-            res = self._execute_bucket(plan, mems, faults)
+            res = self._execute_bucket(plan, mems, faults, rng)
             wall = time.perf_counter() - t0
             _metrics.histogram("serve.device.busy_us").observe(wall * 1e6)
             if warm_up:
@@ -857,5 +895,34 @@ class PlanService:
         return tickets
 
 
+# ---------------------------------------------------------------------------
+# Shared default service (the pipeline layer's plan source)
+# ---------------------------------------------------------------------------
+
+_DEFAULT: Optional[PlanService] = None
+
+
+def get_default_service() -> PlanService:
+    """Process-wide shared :class:`PlanService` (on ``"cuda"``) that
+    application pipelines compile through by default — stages with the same
+    shape/geometry reuse one compiled plan instead of private recompiles.
+    Without CUDA it raises like every entry point; pass the stages a
+    ``service=PlanService(device="cpu")`` instead."""
+    global _DEFAULT
+    if _DEFAULT is None:
+        _DEFAULT = PlanService(max_plans=64)
+    return _DEFAULT
+
+
+def reset_default_service() -> None:
+    """Drop the shared service (tests; releases all cached plans)."""
+    global _DEFAULT
+    if _DEFAULT is not None:
+        for w in list(_DEFAULT._plans.values()):
+            w.plan.clear_caches()
+        _DEFAULT.close()
+    _DEFAULT = None
+
+
 __all__ = ["CacheStats", "PlanService", "ServeRequest", "Ticket",
-           "bucket_up"]
+           "bucket_up", "get_default_service", "reset_default_service"]

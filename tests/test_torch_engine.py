@@ -21,6 +21,7 @@ from test_conformance import interp_reference, random_program  # noqa: E402
 from repro.core import compile_program as ref_compile  # noqa: E402
 from repro.core import execute as ref_execute  # noqa: E402
 from repro.core.compile import compiled_state as ref_state  # noqa: E402
+from repro.core.isa import ColOp as RefColOp  # noqa: E402
 from repro.device.faults import FaultModel as RefFaultModel  # noqa: E402
 from repro.device.faults import \
     FaultRealization as RefRealization  # noqa: E402
@@ -207,8 +208,14 @@ def test_backend_contracts():
                                     "torch-unfused", "kernels")
     cp = compile_program([[ColOp("NOT", (0,), 1, None)]], 8, 8, 1, 1)
     mem = np.zeros((8, 8), np.uint8)
-    with pytest.raises(NotImplementedError, match="device/faults.py"):
-        execute(cp, mem, device="cpu", faults=FaultModel(p_switch=0.1))
+    # FaultModel sampling is ported: the same seed gives the reference's
+    # numpy bits
+    got = execute(cp, mem, device="cpu", faults=FaultModel(p_switch=0.5),
+                  rng=5)
+    want = ref_execute(ref_compile([[RefColOp("NOT", (0,), 1, None)]], 8, 8,
+                                   1, 1), mem, backend="numpy",
+                       faults=RefFaultModel(p_switch=0.5), rng=5)
+    np.testing.assert_array_equal(got.mem, want.mem)
     with pytest.raises(NotImplementedError, match="mesh_exec"):
         execute(cp, mem, device="cpu", mesh=object())
     out = execute(cp, mem, device="cpu").mem

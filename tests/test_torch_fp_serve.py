@@ -212,15 +212,28 @@ def test_unported_submissions_raise():
         np.testing.assert_array_equal(got, np.ones((4, 4), np.int64))
     with pytest.raises(ValueError):
         svc.submit_binary_conv(img, 2 * K)
-    fm = FaultModel(p_switch=0.1)
-    with pytest.raises(NotImplementedError, match="device/faults.py"):
-        svc.submit_matvec(np.ones((2, 4)), np.ones(4), 4, faults=fm)
-    with pytest.raises(NotImplementedError, match="device/faults.py"):
-        svc.submit_conv(img, K, 4, faults=fm)
-    with pytest.raises(NotImplementedError, match="device/faults.py"):
-        svc.submit_binary_conv(img, K, faults=fm)
     with pytest.raises(ValueError):
         svc.submit_matvec(np.ones((2, 4)), np.ones(5), 4)
     with pytest.raises(ValueError):
         svc.submit_conv(np.ones((2, 6)), K, 4)
     assert svc.stats.requests == 2      # the refused submissions count not
+    # FaultModel requests are ported: every kind draws from the service's
+    # seeded stream and gives the reference service's bits
+    from repro.device.faults import FaultModel as RefModel
+    ref = RefService(seed=0, **GEOM)
+    svc = PlanService(seed=0, device="cpu", **GEOM)
+    rng = np.random.default_rng(8)
+    A, x = rng.integers(0, 16, (5, 7)), rng.integers(0, 16, 7)
+    img = rng.integers(0, 16, (9, 9))
+    Kb = np.array([[1, -1, 1], [1, 1, -1], [-1, 1, 1]])
+    tickets = {}
+    for s, fm in ((svc, FaultModel(p_switch=0.1)),
+                  (ref, RefModel(p_switch=0.1))):
+        tickets[s] = [s.submit_matvec(A, x, 4, faults=fm),
+                      s.submit_conv(img, K, 4, faults=fm),
+                      s.submit_binary_conv(img * 2 - 15, Kb, faults=fm)]
+        s.flush()
+    for t, r in zip(tickets[svc], tickets[ref]):
+        np.testing.assert_array_equal(np.asarray(t.result, dtype=np.int64),
+                                      np.asarray(r.result, dtype=np.int64))
+        assert t.backend == "torch"

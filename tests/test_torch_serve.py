@@ -131,7 +131,16 @@ def test_service_rejects_what_is_not_ported(tmp_path):
         svc.close()
         assert [int(v) for v in t.result] == [1, 1, 1]
         assert t.backend == label
-    svc = PlanService(device="cpu", **GEOM)
-    with pytest.raises(NotImplementedError, match="device/faults.py"):
-        svc.submit_binary_matvec(np.ones((2, 8)), np.ones(8),
+    # ported since: FaultModel requests, drawn from the service's seeded
+    # stream as the reference service draws them
+    from repro.device.faults import FaultModel as RefModel
+    A = np.random.default_rng(4).choice([-1, 1], size=(40, 64))
+    svc, ref = PlanService(device="cpu", **GEOM), RefService(**GEOM)
+    t = svc.submit_binary_matvec(A, np.ones(64),
                                  faults=FaultModel(p_switch=0.1))
+    r = ref.submit_binary_matvec(A, np.ones(64),
+                                 faults=RefModel(p_switch=0.1))
+    svc.flush()
+    ref.flush()
+    assert t.backend == "torch"
+    np.testing.assert_array_equal(t.result, r.result)
