@@ -65,6 +65,19 @@ each printing one JSON line per record:
              Launch counts are zeroed just before the kernels service runs
              and read just after. Every ticket must equal its numpy oracle,
              with the tiles, cycles and reduce depth the reference gives.
+   mesh    — multi-device tile dispatch with two slots on the one card:
+             each engine plan's last batch (``BinaryMatvecPlan(1024,
+             416)`` at B 33, ``MatvecPlan`` at 27, ``ConvPlan`` at 63,
+             ``BinaryConvPlan(64, 64, 3)`` at 33) through ``execute(...,
+             backend="torch-fused", mesh=tile_mesh(devices=["cuda:0"] *
+             2))`` equals the single-device images, labelled ``+mesh2``;
+             a cold and a warm flush of the serve phase's twelve requests on
+             ``PlanService(devices=2, backend="kernels")`` equal their
+             oracles and the serial kernels service's tickets, run on both
+             slots, and launch the three served kernels (counts zeroed just
+             before the cold flush, read after it). Record ``mesh``: the
+             walls beside the serial ones (no speed claim: both slots share
+             the card).
    serve_auto_store — the same requests on ``PlanService(backend="auto",
              store=<tmp dir>, tunings=TuningTable(<tmp file>))``: a cold
              flush (plans compiled and stored, each bucket tuned inline), a
@@ -106,6 +119,24 @@ each printing one JSON line per record:
              fault-free one (``kernels``). Per run and device: the wall and
              the host's mask drawing and copying (``engine.fault.draw`` /
              ``engine.fault.copy`` span totals) as a share of it.
+
+8. lm      — the model stack's serving path on ``cuda`` at full width,
+             weights from a seeded ``torch.Generator``: olmo-1b (16 layers,
+             d_model 2048, vocab 50304) and mamba2-370m (48 layers) in
+             their bf16, each serving 8 requests of 16 new tokens on 4
+             slots of a 128-row cache through ``launch.serve.serve`` (the
+             CLI's path): per-request prefill ms and every decode step's ms
+             from CUDA events, tokens per second, peak memory (and what
+             earlier phases still held when it began), and the
+             decode step's bound (its parameter bytes, and its cache, read
+             once at 3.35 TB/s). Both in float32: one 16-token prompt's
+             forward logits on the card, on the CPU, and on the CPU in
+             float64 agree pairwise (card-CPU, card-f64, CPU-f64) within
+             1e-2 of the float64 logits' largest magnitude, and so do 16
+             decode steps on the card against its forward; in float64 the
+             first 4 decode steps equal the forward within 1e-9 of it. A matpim-bnn forward (4 × 64 tokens) at
+             full width. Record ``lm``. The model path launches none of the
+             five kernels: the reference's runs no Pallas kernel.
 
 Then the per-kernel summary line ``{"kernels": [...]}`` (``launches`` from
 the serve phase for binary_matmul, splitk_matvec and conv2d_shift, from the
@@ -734,7 +765,8 @@ def engine_case(plan, name, cycles, Bs, make, decode, oracle,
     """Run ``plan`` over each batch size on the three device backends; all
     decode identically and equal ``oracle``. ``kernels_label`` is the
     label a ``kernels`` run must carry (``kernels:fallback-torch`` for a
-    trace no kernel computes)."""
+    trace no kernel computes). Returns the last batch's memory images and
+    its final images on ``torch-fused``."""
     t0 = time.perf_counter()
     cp = plan.compile()
     compile_s = time.perf_counter() - t0
@@ -752,6 +784,8 @@ def engine_case(plan, name, cycles, Bs, make, decode, oracle,
                 res = plan.execute_batch(mems, backend=backend,
                                          device="cuda")
                 walls[f"{backend}:{run}"] = (time.perf_counter() - t0) * 1e3
+            if backend == "torch-fused":
+                fused = res.mem
             label = kernels_label if backend == "kernels" else backend
             check(res.backend == label and res.cycles == cycles,
                   f"{name} {backend}: label {res.backend}, {res.cycles} "
@@ -766,6 +800,7 @@ def engine_case(plan, name, cycles, Bs, make, decode, oracle,
                       f"instance {b}")
         emit("engine", plan=name, B=B, cycles=cycles, compile_s=compile_s,
              wall_ms=walls)
+    return mems, fused, walls["torch-fused:warm"]
 
 
 def sign_correlate(img, K):
@@ -789,37 +824,41 @@ BCONV_K5 = np.array([[1, -1, 1, 1, -1], [-1, 1, -1, 1, 1],
                      [1, -1, 1, 1, -1]])
 
 
-def phase_engine() -> None:
+def phase_engine() -> dict:
+    """Returns, per plan kind, the plan, its last batch, that batch's
+    final images on ``torch-fused`` and the warm wall (the mesh phase's
+    inputs)."""
     from repro_torch.core import (BinaryConvPlan, BinaryMatvecPlan,
                                   ConvPlan, MatvecPlan)
     rng = np.random.default_rng(1)
 
+    kinds = {}
     bplan = BinaryMatvecPlan(1024, 416)
-    engine_case(
+    kinds["BinaryMatvecPlan(1024, 416)"] = (bplan, *engine_case(
         bplan, "BinaryMatvecPlan(1024, 416)", 565, (1, 20, 33),
         lambda B: (rng.choice([-1, 1], size=(B, 1024, 416)),
                    rng.choice([-1, 1], size=(B, 416))),
         lambda m: (bplan.decode_y(m), bplan.decode_popcount(m)),
         lambda A, x: [(np.where(d >= 0, 1, -1), (d + 416) // 2)
-                      for d in np.einsum("bmk,bk->bm", A, x)])
+                      for d in np.einsum("bmk,bk->bm", A, x)]))
 
     mplan = MatvecPlan(1024, 39, 8)
-    engine_case(
+    kinds["MatvecPlan(1024, 39, 8)"] = (mplan, *engine_case(
         mplan, "MatvecPlan(1024, 39, 8)", 9474, (1, 27),
         lambda B: (rng.integers(0, 256, size=(B, 1024, 39)),
                    rng.integers(0, 256, size=(B, 39))),
         lambda m: (mplan.decode_y(m),),
         lambda A, x: [(d % (1 << 16),)
-                      for d in np.einsum("bmk,bk->bm", A, x)])
+                      for d in np.einsum("bmk,bk->bm", A, x)]))
 
     cplan = ConvPlan(64, 8, 3, 8)
     cplan.ensure_program(np.ones((3, 3), np.int64))   # kstore: K-free
-    engine_case(
+    kinds["ConvPlan(64, 8, 3, 8)"] = (cplan, *engine_case(
         cplan, "ConvPlan(64, 8, 3, 8)", 9800, (1, 63),
         lambda B: (rng.integers(0, 256, size=(B, 64, 8)),
                    rng.integers(0, 256, size=(B, 3, 3))),
         lambda m: (cplan.decode_out(m),),
-        lambda A, K: [(o,) for o in correlate(A, K, 8)])
+        lambda A, K: [(o,) for o in correlate(A, K, 8)]))
 
     # binary conv: one kernel per program (its taps are in the gates), so
     # every instance of a batch shares it; no kernel computes the trace
@@ -827,14 +866,18 @@ def phase_engine() -> None:
                               ((128, 64), BCONV_K5, 1818)):
         bcplan = BinaryConvPlan(m, n, K.shape[0])
         bcplan.ensure_program(K)
-        engine_case(
-            bcplan, f"BinaryConvPlan({m}, {n}, {K.shape[0]})", cycles,
+        name = f"BinaryConvPlan({m}, {n}, {K.shape[0]})"
+        out = engine_case(
+            bcplan, name, cycles,
             (1, 33),
             lambda B, m=m, n=n, K=K: (rng.choice([-1, 1], size=(B, m, n)),
                                       np.broadcast_to(K, (B,) + K.shape)),
             lambda mem, p=bcplan: (p.decode_out(mem),),
             lambda A, Ks: [(sign_correlate(a, k),) for a, k in zip(A, Ks)],
             kernels_label="kernels:fallback-torch")
+        if K is BCONV_K3:
+            kinds[name] = (bcplan, *out)
+    return kinds
 
 
 # request name -> (kind, operands, tiles, cycles, reduce depth)
@@ -924,12 +967,13 @@ def launch_counters():
             "binary_conv2d": conv2d_shift.binary_conv2d}
 
 
-def phase_serve() -> dict:
+def phase_serve() -> tuple:
     """The slice's path; returns each kernel's launches in the kernels
-    service's cold round."""
+    service's cold round, and that service's tickets and walls (the mesh
+    phase's serial flush)."""
     from repro_torch.serve import PlanService
     counters = launch_counters()
-    launches = None
+    launches = serial = None
     for backend in ("kernels", "torch"):
         rng = np.random.default_rng(2)
         reqs = serve_requests(rng)
@@ -968,6 +1012,9 @@ def phase_serve() -> dict:
         # a warm round: plans cached, replay tables and libraries loaded
         warm, warm_wall, warm_spans = serve_round(
             svc, serve_requests(np.random.default_rng(3)))
+        if backend == "kernels":
+            serial = {"tickets": tickets, "cold_wall_s": wall,
+                      "warm_wall_s": warm_wall}
         emit("serve", backend=backend,
              launches=launches if backend == "kernels" else None,
              stats=svc.stats.as_dict(),
@@ -981,7 +1028,7 @@ def phase_serve() -> dict:
                    "requests": {name: {"wall_s": t.wall_s,
                                        "batch_wall_s": t.batch_wall_s}
                                 for name, t in warm.items()}})
-    return launches
+    return launches, serial
 
 
 # the span totals the serve_auto_store record reports for each flush
@@ -1333,6 +1380,259 @@ def phase_faults(torch) -> None:
     emit("faults", runs=records)
 
 
+def phase_mesh(kinds: dict, serial: dict, card: str) -> None:
+    """Multi-device tile dispatch with two slots on one card: each engine
+    plan's last batch on ``torch-fused`` over ``tile_mesh(devices=
+    ["cuda:0"] * 2)`` must give the single-device images, labelled
+    ``+mesh2``; one cold and one warm flush of the serve phase's requests on
+    ``PlanService(devices=2, backend="kernels")`` must equal the oracles and
+    the serial service's tickets, and launch the three served kernels
+    (counts zeroed just before the cold flush, read after it). Walls beside
+    the serial ones: both slots share the card, so no speed is claimed."""
+    from repro_torch.core import execute
+    from repro_torch.distributed.mesh_exec import tile_mesh
+    from repro_torch.serve import PlanService
+    mesh = tile_mesh(devices=["cuda:0"] * 2)
+    engine = {}
+    for name, (plan, mems, want, serial_ms) in kinds.items():
+        cp = plan.compile()
+        walls = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            res = execute(cp, mems, backend="torch-fused", device="cuda",
+                          mesh=mesh)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        check(res.backend == "torch-fused+mesh2",
+              f"{name} on the mesh labelled {res.backend}")
+        check(np.array_equal(res.mem, want),
+              f"{name} on two slots != one device")
+        engine[name] = {"B": int(mems.shape[0]), "label": res.backend,
+                        "mesh_ms": {"first": walls[0], "warm": walls[1]},
+                        "serial_warm_ms": serial_ms}
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    svc = PlanService(backend="kernels", device="cuda", devices=2)
+    try:
+        reqs = serve_requests(np.random.default_rng(2))
+        tickets, wall, spans = serve_round(svc, reqs)
+        launches = {n: fn.launches for n, fn in counters.items()}
+        for n in ("binary_matmul", "splitk_matvec", "conv2d_shift"):
+            check(launches[n] > 0, f"the two-slot service launched no {n}")
+        for name, t in tickets.items():
+            s = serial["tickets"][name]
+            check(np.array_equal(np.asarray(t.result, dtype=np.int64),
+                                 np.asarray(s.result, dtype=np.int64))
+                  and (t.cycles, t.backend) == (s.cycles, s.backend),
+                  f"{name} on two slots != the serial flush")
+        slots = sorted({t.device for t in tickets.values()})
+        check(slots == [0, 1], f"the flush ran on slots {slots}")
+        warm, warm_wall, _ = serve_round(
+            svc, serve_requests(np.random.default_rng(3)))
+    finally:
+        svc.close()
+    emit("mesh", card=card, engine=engine, serve={
+        "launches": launches, "slots": slots,
+        "cold_wall_s": wall, "warm_wall_s": warm_wall,
+        "serial_cold_wall_s": serial["cold_wall_s"],
+        "serial_warm_wall_s": serial["warm_wall_s"],
+        "spans_ms": spans,
+        "slot_of": {name: t.device for name, t in tickets.items()}})
+
+
+# full-width model configs the lm phase serves in bf16 through the launcher
+LM_SERVED = ("olmo-1b", "mamba2-370m")
+LM_PROMPT = 16
+# float32 against float64 at full width, as a share of the logits' largest
+# magnitude (~170-260 on seeded weights): rounding in another order grows
+# with depth, to 1.6e-3 of it on the card for mamba2-370m's 48 layers and
+# 1.7e-4 on the CPU for olmo-1b's 16 (PERF.md, PR 19), past the 1e-3
+# absolute, and the reference's elementwise 2e-2 for decode against
+# forward, that float32 keeps at reduced size
+LM_F32_TOL = 1e-2
+
+
+def _decode_bytes(model, params, B: int, S: int) -> int:
+    """Bytes one decode step must move: every parameter once, and the
+    whole cache (K/V rows or conv and SSM states) read once."""
+    import torch
+    from repro_torch.models.spec import param_bytes, tree_leaves
+    cache = model.init_cache(B, S, model.cfg.dtype, device="meta")
+    return param_bytes(params) + sum(
+        t.numel() * t.element_size() for t in tree_leaves(cache)
+        if isinstance(t, torch.Tensor))
+
+
+def _f64_runs(torch, cfg, params, toks, steps: int):
+    """The same model in float64 on the CPU: the weights widened, and the
+    float32 the layers compute norms, rotary angles, attention and the SSM
+    scan in (each module's ``F32``) widened for the call. Returns the
+    forward logits and the largest difference between the first ``steps``
+    decode steps and the forward (the two paths' arithmetic, free of
+    float32 rounding)."""
+    import dataclasses
+
+    from repro_torch.models import build_model
+    from repro_torch.models import layers, lm, mamba
+    from repro_torch.models.spec import tree_map
+    mods = (layers, lm, mamba)
+    saved = [m.F32 for m in mods]
+    for m in mods:
+        m.F32 = torch.float64
+    try:
+        wide = tree_map(lambda t: t.double(), params)
+        model = build_model(dataclasses.replace(cfg, dtype="float64"))
+        full = model.forward(wide, {"tokens": toks})[0]
+        cache = model.init_cache(1, steps, torch.float64)
+        err = 0.0
+        for t in range(steps):
+            lg, cache = model.decode_step(wide, cache, toks[:, t:t + 1],
+                                          torch.full((1,), t))
+            err = max(err, float((lg[:, 0] - full[:, t]).abs().max()))
+        return full, err
+    finally:
+        for m, f in zip(mods, saved):
+            m.F32 = f
+
+
+def lm_check_f32(torch, arch: str) -> dict:
+    """Full width in float32 on seeded weights: one 16-token prompt's
+    forward logits on the card, on the CPU and on the CPU in float64 (the
+    same weights widened). The card's and the CPU's logits must agree, and
+    each must agree with the float64 ones, within ``LM_F32_TOL`` of the
+    float64 logits' largest magnitude; so must 16 decode steps on the card
+    with the card's full forward. In float64 the first 4 decode steps
+    equal the forward within 1e-9 of that magnitude: decode and forward
+    compute the same function, and what separates them in float32 is
+    rounding."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.spec import init_params, tree_map
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    model = build_model(cfg)
+    params = init_params(model.specs(), torch.Generator().manual_seed(1),
+                         "float32")
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        1, cfg.vocab, (1, LM_PROMPT))).long()
+    with torch.no_grad():
+        cpu, _ = model.forward(params, {"tokens": toks})
+        f64, dec64_err = _f64_runs(torch, cfg, params, toks, 4)
+        gp = tree_map(lambda t: t.to("cuda"), params)
+        del params
+        gt = toks.to("cuda")
+        full, _ = model.forward(gp, {"tokens": gt})
+        card = full.cpu()
+        check(bool(torch.isfinite(card).all()), f"{arch} f32 logits")
+        scale = max(1.0, float(f64.abs().max()))
+        check(dec64_err <= 1e-9 * scale, f"{arch} float64 decode differs "
+              f"from the float64 forward by {dec64_err}")
+        errs = {"card_vs_cpu": float((card - cpu).abs().max()),
+                "card_vs_f64": float((card.double() - f64).abs().max()),
+                "cpu_vs_f64": float((cpu.double() - f64).abs().max())}
+        cache = model.init_cache(1, LM_PROMPT, torch.float32, device="cuda")
+        dec = 0.0
+        for t in range(LM_PROMPT):
+            lg, cache = model.decode_step(
+                gp, cache, gt[:, t:t + 1],
+                torch.full((1,), t, dtype=torch.long, device="cuda"))
+            dec = max(dec, float((lg[:, 0] - full[:, t]).abs().max()))
+        errs["card_decode_vs_forward"] = dec
+        for what, err in errs.items():
+            check(err <= LM_F32_TOL * scale, f"{arch} f32 logits {what}: "
+                  f"{err} over {LM_F32_TOL} of {scale}")
+    del gp
+    torch.cuda.empty_cache()
+    return {"logits_max_abs_f64": scale,
+            "f64_decode_vs_forward_max_abs_err": dec64_err,
+            **{f"{k}_max_abs_err": v for k, v in errs.items()}}
+
+
+def lm_serve(torch, arch: str) -> dict:
+    """Serve 8 requests (16 new tokens each, 4 slots, a 128-row cache)
+    through the port's launcher at full width in the config's bf16, with
+    weights from a seeded ``torch.Generator`` on the card."""
+    from repro_torch.launch.serve import serve
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    rep = serve(arch, requests=8, max_new=16, max_batch=4, max_seq=128,
+                device="cuda")
+    cfg, eng = rep["cfg"], rep["engine"]
+    peak = torch.cuda.max_memory_allocated()
+    results = rep["results"]
+    check(sorted(results) == list(range(8))
+          and all(len(v) == 16 and all(0 <= t < cfg.vocab for t in v)
+                  for v in results.values()),
+          f"{arch}: served {results}")
+    tm = eng.timings()
+    dec = sorted(tm["decode_ms"])
+    n_tok = sum(len(v) for v in results.values())
+    step_bytes = _decode_bytes(eng.model, eng.params, eng.B, eng.S)
+    out = {"arch": arch, "dtype": cfg.dtype, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab,
+           "vocab_padded": cfg.vocab_padded, "params": rep["params"],
+           "param_bytes": rep["param_bytes"], "requests": 8,
+           "max_new": 16, "max_batch": eng.B, "max_seq": eng.S,
+           "tokens": n_tok, "wall_s": rep["wall_s"],
+           "tokens_per_s": n_tok / rep["wall_s"],
+           "prefill_ms": tm["prefill_ms"],
+           "decode_steps": len(dec), "decode_ms_median": dec[len(dec) // 2],
+           "decode_ms_min": dec[0], "decode_ms_max": dec[-1],
+           "decode_step_bytes": step_bytes,
+           "decode_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
+           "weights_bound_ms": rep["param_bytes"] / HBM_BYTES_PER_S * 1e3,
+           "peak_memory_bytes": peak, "allocated_before_bytes": before,
+           "first_tokens": {u: results[u][:4] for u in range(2)}}
+    del rep, eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_lm(torch, card: str) -> None:
+    """The model stack's serving path on the card at full width: olmo-1b
+    and mamba2-370m served in bf16 through the launcher (per-request
+    prefill ms and decode-step ms from CUDA events, tokens per second,
+    peak memory, the decode step's bytes bound), both checked in float32
+    (card against CPU, decode against the forward), and a forward of
+    matpim-bnn. Any mismatch raises."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.spec import init_params
+    served = {}
+    for arch in LM_SERVED:
+        served[arch] = lm_serve(torch, arch)
+    olmo = served["olmo-1b"]
+    check((olmo["n_layers"], olmo["d_model"], olmo["vocab"]) ==
+          (16, 2048, 50304) and olmo["dtype"] == "bfloat16",
+          f"olmo-1b served at {olmo}")
+    f32 = {arch: lm_check_f32(torch, arch) for arch in LM_SERVED}
+    cfg = get_config("matpim-bnn")
+    model = build_model(cfg)
+    params = init_params(model.specs(),
+                         torch.Generator(device="cuda").manual_seed(2),
+                         cfg.dtype)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, (4, 64))).long().cuda()
+    bnn_ms = []
+    with torch.no_grad():
+        for _ in range(2):          # a first call, then a warm one
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = model.forward(params, {"tokens": toks})
+            torch.cuda.synchronize()
+            bnn_ms.append((time.perf_counter() - t0) * 1e3)
+    check(tuple(logits.shape) == (4, 64, cfg.vocab_padded)
+          and bool(torch.isfinite(logits).all()),
+          f"matpim-bnn logits {tuple(logits.shape)}")
+    emit("lm", card=card, served=served, f32=f32,
+         bnn={"n_layers": cfg.n_layers, "d_model": cfg.d_model,
+              "d_ff": cfg.d_ff, "batch": [4, 64], "forward_ms": {"first": bnn_ms[0],
+                                                "warm": bnn_ms[1]},
+              "dtype": cfg.dtype})
+
+
 SOURCES = {
     "binary_matmul": ("src/repro_torch/csrc/binary_matmul.cu",
                       "src/repro/kernels/binary_matmul.py:63"),
@@ -1360,13 +1660,15 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build()
     rows = phase_kernels(torch, int_rates(torch))
-    phase_engine()
-    launches = phase_serve()
+    kinds = phase_engine()
+    launches, serial = phase_serve()
+    phase_mesh(kinds, serial, name_limit)
     phase_serve_auto_store()
     launches.update({n: v for n, v in phase_ops(torch).items()
                      if n in ("conv2d_shift_tiled", "binary_conv2d")})
     phase_apps(torch)
     phase_faults(torch)
+    phase_lm(torch, name_limit)
     summary = {"kernels": []}
     for name in COUNTED:
         main_row = rows[name][0]

@@ -24,8 +24,8 @@ Differences from the reference:
 * The backends are the port's (``engine.BACKENDS``). :func:`heuristic`
   picks ``kernels`` for a trace the kernels compute
   (``kernel_exec.kernels_eligible``), else ``torch-fused`` when the trace
-  has a schedule, else ``torch-unfused``. The topology is always 1 (the
-  port runs on one device).
+  has a schedule, else ``torch-unfused``; under a mesh (``topo > 1``) it
+  picks a ``torch`` variant, the only family that shards.
 * The process-default table is named by ``$MATPIM_TORCH_TUNINGS``, not the
   reference's ``$MATPIM_TUNINGS``: rows that name the other package's
   backends are unrunnable here, so a shared file would mix two tables.
@@ -242,10 +242,14 @@ def _runnable(backend: str) -> bool:
 def heuristic(cp, B: int, topo: int = 1) -> Tuple[str, Optional[int]]:
     """Cold-path choice with nothing measured: ``kernels`` when the kernels
     compute the trace exactly, else fused replay when the trace carries a
-    schedule, else per-cycle replay. ``B`` and ``topo`` do not change the
-    choice on one device."""
+    schedule, else per-cycle replay. ``B`` does not change the choice.
+
+    ``topo > 1`` (a usable ``tiles`` mesh under the batch) picks a
+    ``torch`` variant whatever the trace: only ``torch`` executes sharded,
+    so ``kernels`` would run the topology it was asked to use on one
+    device."""
     from .kernel_exec import kernels_eligible
-    if kernels_eligible(cp):
+    if kernels_eligible(cp) and topo <= 1:
         return "kernels", None
     return ("torch-fused" if cp.schedule is not None
             else "torch-unfused"), None
@@ -257,7 +261,9 @@ def resolve_auto(cp, B: int, faults=None,
     """``backend="auto"`` resolution: ``(backend, max_batch, source)``.
 
     Fault runs skip the table entirely: they replay on ``torch``, and
-    fault-injected walls never train the table.
+    fault-injected walls never train the table. ``topo`` keys the lookup
+    by device topology, so a 1-device measurement never decides a sharded
+    execute (and vice versa).
     """
     if faults is not None:
         _metrics.counter("autotune.resolve.faults").inc()

@@ -17,8 +17,10 @@ over a batch of B independent crossbars on a torch device:
   from the autotuner's tunings table, else its heuristic (see
   :mod:`.autotune`); results are labelled ``auto:<resolved>[@max_batch]``.
 
-The reference's ``mesh`` (multi-device execution, ``distributed/
-mesh_exec.py``) is not ported: passing it raises ``NotImplementedError``.
+``mesh`` (a ``("tiles",)`` mesh of torch devices, explicit or made
+ambient by ``distributed.sharding.use_mesh``) shards a fault-free
+``torch`` batch over its slots (``distributed/mesh_exec.py``), labelled
+``<backend>+mesh<D>``; results are bit-identical to one device.
 
 Every entry point takes an explicit ``device``, ``"cuda"`` by default. When
 CUDA is missing and the caller did not ask for the CPU, the call raises
@@ -316,6 +318,15 @@ def _init_entries(cp: CompiledProgram, t: int, device) -> list:
     return ents
 
 
+def tables_ready(device) -> None:
+    """Wait for a replay plan's table copies on ``device``'s current
+    stream: a plan is built once and then read from every stream that
+    replays it (the device slots of ``mesh_exec`` and ``PlanService``)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+
+
 def _cycle_plan(cp: CompiledProgram, device) -> list:
     """Per-cycle replay plan (memoized per device): one step per cycle."""
     key = ("torch_plan", str(device))
@@ -333,6 +344,7 @@ def _cycle_plan(cp: CompiledProgram, device) -> list:
         plan.append((mode, _step_groups(
             cp, mode, cp.gate[t, :n], cp.dst[t, :n], cp.ins[t, :n],
             cp.sel[t, :n], np.full(n, t), slots, device)))
+    tables_ready(device)
     cp._caches[key] = plan
     return plan
 
@@ -461,6 +473,17 @@ def run_torch_unfused(cp: CompiledProgram, mem: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def _ambient_mesh():
+    """The mesh activated by ``distributed.sharding.use_mesh``, if any.
+
+    Looked up in ``sys.modules``: an ambient mesh can only exist if
+    something already imported the sharding module to activate it.
+    """
+    import sys
+    mod = sys.modules.get("repro_torch.distributed.sharding")
+    return mod.current_mesh() if mod is not None else None
+
+
 def execute(
     cp: CompiledProgram,
     mem: np.ndarray,
@@ -496,9 +519,18 @@ def execute(
     cannot reproduce. Fault runs never reach the kernels (``kernels``
     replays them as ``kernels:fallback-torch``; ``auto`` resolves
     ``torch``). The fault machinery runs even for the ideal model, which is
-    bit-identical to ``faults=None``, and never adds cycles. ``mesh``
-    raises ``NotImplementedError``: multi-device execution
-    (``distributed/mesh_exec.py``) is not ported.
+    bit-identical to ``faults=None``, and never adds cycles.
+
+    ``mesh`` (or the ambient mesh of ``distributed.sharding.use_mesh``)
+    shards the batch over the mesh's ``tiles`` slots
+    (:func:`repro_torch.distributed.mesh_exec.try_run_sharded`): each slot
+    replays its word chunks on its own device, and the result is
+    bit-identical to one device, labelled ``<label>+mesh<D>``. Only the
+    ``torch`` family shards, and never a fault run; ``kernels`` runs on
+    ``device`` as without a mesh. A mesh of one slot, or a batch smaller
+    than the slot count, runs the single-device path silently.
+    ``backend="auto"`` looks its table up at the mesh's topology and, with
+    nothing measured there, resolves a ``torch`` variant.
 
     ``backend="auto"`` resolves a concrete backend (and optionally a
     span-chunking ``max_batch``) per ``(program key, batch bucket)`` from
@@ -517,15 +549,13 @@ def execute(
     ``engine.fault.p_*`` gauges. Host mask drawing and its copies to the
     device run under ``engine.fault.draw`` and ``engine.fault.copy`` spans.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= needs multi-device execution (distributed/mesh_exec.py), "
-            "which is not ported to repro_torch")
     dev = resolve_device(device)
     t0 = time.perf_counter()
+    if mesh is None:
+        mesh = _ambient_mesh()
     with _span("engine.execute", backend=backend) as sp:
         res = _execute_impl(cp, mem, backend, dev, max_batch, faults, rng,
-                            tunings)
+                            tunings, mesh)
         sp.set(resolved=res.backend, cycles=res.cycles)
     wall_us = (time.perf_counter() - t0) * 1e6
     label = res.backend.split("@", 1)[0]
@@ -545,7 +575,7 @@ def execute(
 
 def _execute_impl(cp: CompiledProgram, mem: np.ndarray, backend: str,
                   device: torch.device, max_batch: Optional[int],
-                  faults, rng=None, tunings=None) -> EngineResult:
+                  faults, rng=None, tunings=None, mesh=None) -> EngineResult:
     from .fused import run_torch_fused, schedule_for
     from .kernel_exec import kernels_eligible, run_kernels
 
@@ -555,15 +585,23 @@ def _execute_impl(cp: CompiledProgram, mem: np.ndarray, backend: str,
     if mem.shape[1:] != (cp.rows, cp.cols):
         raise ValueError(f"memory shape {mem.shape} does not match the "
                          f"trace geometry {(cp.rows, cp.cols)}")
-    mem_t = torch.from_numpy(
-        np.array(mem, dtype=np.uint8, order="C")).to(device)
+    mem = np.ascontiguousarray(mem, dtype=np.uint8)
+
+    # device topology the batch could shard over: >1 only when the mesh has
+    # a usable 'tiles' axis, the batch fills it, and the run is fault-free
+    topo = 1
+    if mesh is not None and faults is None:
+        from ..distributed.mesh_exec import mesh_devices
+        D = mesh_devices(mesh)
+        if D > 1 and mem.shape[0] >= D:
+            topo = D
 
     base, variant = parse_backend(backend)
     label = backend
     if base == "auto":
         from .autotune import resolve_auto
-        resolved, mb, _src = resolve_auto(cp, mem_t.shape[0], faults=faults,
-                                          table=tunings)
+        resolved, mb, _src = resolve_auto(cp, mem.shape[0], faults=faults,
+                                          table=tunings, topo=topo)
         base, variant = parse_backend(resolved)
         if max_batch is None and mb is not None:
             max_batch = mb
@@ -571,12 +609,13 @@ def _execute_impl(cp: CompiledProgram, mem: np.ndarray, backend: str,
                  else f"auto:{resolved}")
     if base == "kernels":
         if kernels_eligible(cp, faults):
+            mem_t = torch.from_numpy(mem.copy()).to(device)
             out = run_kernels(cp, mem_t).cpu().numpy()
             return EngineResult(mem=out[0] if squeeze else out,
                                 cycles=cp.n_cycles, stats=dict(cp.stats),
                                 backend=label)
         variant, label = "auto", "kernels:fallback-torch"
-    B = mem_t.shape[0]
+    B = mem.shape[0]
     # FaultModel sampling depends on the chunking: keep the reference's
     # numpy chunk width so same-seed draws stay bit-identical
     step = min(64, B) if isinstance(faults, FaultModel) else B
@@ -592,6 +631,16 @@ def _execute_impl(cp: CompiledProgram, mem: np.ndarray, backend: str,
             f"FaultRealization batch {faults.batch} != memory batch {B}; "
             f"sample the realization for the batch it will run under")
 
+    if topo > 1 and base == "torch" and faults is None:
+        from ..distributed.mesh_exec import try_run_sharded
+        sharded = try_run_sharded(cp, mem, variant, mesh)
+        if sharded is not None:
+            out, D, _n = sharded
+            return EngineResult(mem=out[0] if squeeze else out,
+                                cycles=cp.n_cycles, stats=dict(cp.stats),
+                                backend=f"{label}+mesh{D}", faults=faults)
+
+    mem_t = torch.from_numpy(mem.copy()).to(device)
     rng = as_rng(rng) if isinstance(faults, FaultModel) else None
     run = run_torch_fused if variant == "fused" else run_torch_unfused
     chunks = []

@@ -28,7 +28,8 @@ import torch
 
 from .compile import (MAX_FANIN, MODE_INIT, CompiledProgram, FusedSchedule,
                       fuse_program)
-from .engine import _cycle_plan, _init_entries, _step_groups, run_plan
+from .engine import (_cycle_plan, _init_entries, _step_groups, run_plan,
+                     tables_ready)
 
 
 def schedule_for(cp: CompiledProgram) -> FusedSchedule:
@@ -81,6 +82,7 @@ def _fused_plan(cp: CompiledProgram, device) -> list:
                 cat([np.full(k, seg.t0 + j) for j, k in zip(js, n)]),
                 cat([seg.perm[j, :k] for j, k in zip(js, n)]),
                 device)))
+    tables_ready(device)
     cp._caches[key] = plan
     return plan
 

@@ -201,6 +201,7 @@ class CrossbarPlan:
         faults=None,
         rng=None,
         tunings=None,
+        mesh=None,
     ) -> EngineResult:
         """Run this plan's program over ``(B, rows, cols)`` crossbars at once.
 
@@ -209,7 +210,9 @@ class CrossbarPlan:
         With ``faults``, every crossbar in the batch draws an independent
         fault realization from ``rng`` — the Monte-Carlo axis of
         :mod:`repro_torch.device`. ``tunings`` is the table
-        ``backend="auto"`` resolves from.
+        ``backend="auto"`` resolves from. ``mesh`` (or an ambient
+        ``distributed.sharding.use_mesh``) shards the batch axis over a
+        mesh's device slots — see ``distributed.mesh_exec``.
         """
         if backend == "interp":
             self._reject_interp_faults(faults)
@@ -223,4 +226,4 @@ class CrossbarPlan:
                                 backend="interp")
         return execute(self.compile(), mems, backend=backend, device=device,
                        max_batch=max_batch, faults=faults, rng=rng,
-                       tunings=tunings)
+                       tunings=tunings, mesh=mesh)

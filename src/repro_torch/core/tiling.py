@@ -95,7 +95,7 @@ def majority_sign(pop: np.ndarray, n: int) -> np.ndarray:
 
 def _execute_tiles(plan, n_tiles: int, load_tile, decode_tile,
                    backend: str, max_batch: Optional[int], faults=None,
-                   rng=None, device="cuda"):
+                   rng=None, device="cuda", mesh=None):
     """Load/execute/decode tiles in bounded-size batches.
 
     Chunking only bounds host memory — every chunk runs the identical
@@ -103,10 +103,17 @@ def _execute_tiles(plan, n_tiles: int, load_tile, decode_tile,
     all tiles in lockstep) is unchanged. With ``faults``, every tile draws
     an independent device-fault realization from ONE stream shared across
     the chunks (``rng``: ``None`` / seed / Generator), as in the reference.
+
+    With a ``mesh`` (explicit or ambient via
+    ``distributed.sharding.use_mesh``), fault-free batches hand the whole
+    tile axis to the engine in larger host chunks so
+    ``distributed.mesh_exec`` can shard it across device slots; results
+    stay bit-identical to the single-device loop.
     """
     if faults is not None:
         rng = np.random.default_rng(rng)  # one stream across all chunks
-    step = max_batch or 64
+    step = max_batch or (min(n_tiles, 256) if mesh is not None
+                         and faults is None else 64)
     results = [None] * n_tiles
     cycles = 0
     label = backend
@@ -116,7 +123,7 @@ def _execute_tiles(plan, n_tiles: int, load_tile, decode_tile,
         for b in range(s, e):
             load_tile(b, mems[b - s])
         res = plan.execute_batch(mems, backend=backend, device=device,
-                                 faults=faults, rng=rng)
+                                 faults=faults, rng=rng, mesh=mesh)
         cycles = res.cycles
         label = res.backend
         for b in range(s, e):
@@ -137,10 +144,11 @@ def max_matvec_block(N: int, cols: int = 1024, parts: int = 32) -> int:
 
 
 def _run_kw(kw):
-    """Split run-time kwargs (backend/max_batch/faults/rng/device) from plan
-    kwargs."""
+    """Split run-time kwargs (backend/max_batch/faults/rng/device/mesh)
+    from plan kwargs."""
     return {k: kw.pop(k)
-            for k in ("backend", "max_batch", "faults", "rng", "device")
+            for k in ("backend", "max_batch", "faults", "rng", "device",
+                      "mesh")
             if k in kw}
 
 
@@ -204,11 +212,11 @@ class TiledMatvec(_TiledEnergyMixin):
 
     def run(self, A: np.ndarray, x: np.ndarray, backend: str = "torch",
             max_batch: Optional[int] = None, faults=None, rng=None,
-            device="cuda") -> Tuple[np.ndarray, TiledResult]:
+            device="cuda", mesh=None) -> Tuple[np.ndarray, TiledResult]:
         load, decode, finalize = self.bind(A, x)
         partials, cycles, label = _execute_tiles(
             self.plan, self.n_tiles, load, decode, backend, max_batch,
-            faults, rng, device)
+            faults, rng, device, mesh)
         y, depth = finalize(partials)
         return y, TiledResult((self.gm, self.gk), self.n_tiles, cycles,
                               depth, label)
@@ -299,11 +307,11 @@ class TiledBinaryMatvec(_TiledEnergyMixin):
 
     def run(self, A: np.ndarray, x: np.ndarray, backend: str = "torch",
             max_batch: Optional[int] = None, faults=None, rng=None,
-            device="cuda") -> Tuple[np.ndarray, TiledResult]:
+            device="cuda", mesh=None) -> Tuple[np.ndarray, TiledResult]:
         load, decode, finalize = self.bind(A, x)
         partials, cycles, label = _execute_tiles(
             self.plan, self.n_tiles, load, decode, backend, max_batch,
-            faults, rng, device)
+            faults, rng, device, mesh)
         pop_flat, depth = finalize(partials)
         y = majority_sign(pop_flat, self.K)
         self.last_popcounts = pop_flat  # XNOR matches per row (dot = 2*pop - K)
@@ -319,7 +327,7 @@ class TiledBinaryMatvec(_TiledEnergyMixin):
     def popcounts_many(self, A: np.ndarray, X: np.ndarray,
                        backend: str = "torch",
                        max_batch: Optional[int] = None, faults=None,
-                       rng=None, device="cuda") -> np.ndarray:
+                       rng=None, device="cuda", mesh=None) -> np.ndarray:
         """Popcounts of one A against J vectors: X is (J, K), returns (J, M).
 
         All J · gm · gk (vector, tile) pairs execute as engine batches of
@@ -348,7 +356,7 @@ class TiledBinaryMatvec(_TiledEnergyMixin):
         partials, _, _ = _execute_tiles(
             plan, J * gm * gk, load,
             lambda b, mem: plan.decode_popcount(mem).astype(np.int64),
-            backend, max_batch, faults, rng, device)
+            backend, max_batch, faults, rng, device, mesh)
 
         pop = np.empty((J, gm * tm), dtype=np.int64)
         for j in range(J):
@@ -361,7 +369,7 @@ class TiledBinaryMatvec(_TiledEnergyMixin):
 
 def tiled_binary_matvec(A: np.ndarray, x: np.ndarray, backend: str = "torch",
                         max_batch: Optional[int] = None, faults=None,
-                        rng=None, device="cuda", **kw):
+                        rng=None, device="cuda", mesh=None, **kw):
     """One-shot tiled ±1 matvec (see :class:`TiledBinaryMatvec`); ``kw``
     goes to its constructor.
 
@@ -374,7 +382,7 @@ def tiled_binary_matvec(A: np.ndarray, x: np.ndarray, backend: str = "torch",
     M, K = A.shape
     t = TiledBinaryMatvec(M, K, **kw)
     return t.run(A, x, backend=backend, max_batch=max_batch, faults=faults,
-                 rng=rng, device=device)
+                 rng=rng, device=device, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -459,11 +467,11 @@ class TiledConv2d:
 
     def run(self, A: np.ndarray, Kk: np.ndarray, backend: str = "torch",
             max_batch: Optional[int] = None, faults=None, rng=None,
-            device="cuda") -> Tuple[np.ndarray, TiledResult]:
+            device="cuda", mesh=None) -> Tuple[np.ndarray, TiledResult]:
         load, decode, finalize = self.bind(A, Kk)
         tiles, cycles, label = _execute_tiles(
             self.plan, self.n_tiles, load, decode, backend, max_batch,
-            faults, rng, device)
+            faults, rng, device, mesh)
         out, _ = finalize(tiles)
         return out, TiledResult(
             (self.gh, self.gw), self.n_tiles, cycles, 0, label)

@@ -48,6 +48,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import NamedTuple
 
@@ -89,7 +90,8 @@ def build(source: str) -> str:
     if so.exists():
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    tmp = so.with_name(
+        f"{so.name}.{os.getpid()}.{threading.get_ident()}.tmp")
     proc = subprocess.run(
         [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)],
         capture_output=True, text=True)
@@ -129,6 +131,9 @@ class Signature(NamedTuple):
     args_addr: int
 
 
+_COUNT_LOCK = threading.Lock()
+
+
 def launch(wrapper, sig: Signature, a: torch.Tensor, b: torch.Tensor,
            source: str, symbol: str):
     """The wrappers' shared path after the cached signature: ``None`` for
@@ -163,7 +168,8 @@ def launch(wrapper, sig: Signature, a: torch.Tensor, b: torch.Tensor,
         if err != 0:
             raise RuntimeError(f"{wrapper.__name__} launch failed: CUDA "
                                f"error {err}")
-        wrapper.launches += 1
+        with _COUNT_LOCK:           # device-slot threads launch at once
+            wrapper.launches += 1
     return out
 
 

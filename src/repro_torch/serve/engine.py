@@ -1,0 +1,197 @@
+"""Serving engine: continuous-batching prefill + decode with a KV cache,
+the port of ``src/repro/serve/engine.py``.
+
+:class:`Engine` handles prefill → cache handoff (the prompt's K/V rows, or
+a Mamba layer's conv tail and SSM state, set into the request's slot),
+slot-based continuous batching, EOS retirement, and greedy or temperature
+sampling. The batching loop is host-side, as in real serving systems; the
+model runs eagerly on the parameters' device.
+
+Every prefill and decode step is timed on the device: CUDA events on a
+card (read after the step's logits reach the host, which waits for them
+anyway), the host clock on the CPU. :meth:`Engine.timings` returns them.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..models.lm import Model
+from ..models.spec import torch_dtype, tree_leaves
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: np.ndarray                 # (S_prompt,) int
+    max_new: int = 32
+    out: Optional[List[int]] = None
+    done: bool = False
+
+
+class _Timer:
+    """Device time of one call: CUDA events on a card, the host clock
+    (after the call returns) on the CPU."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        if self.cuda:
+            self.t0 = torch.cuda.Event(enable_timing=True)
+            self.t1 = torch.cuda.Event(enable_timing=True)
+            self.t0.record()
+        else:
+            self.t0 = time.perf_counter()
+
+    def stop(self) -> "_Timer":
+        if self.cuda:
+            self.t1.record()
+        else:
+            self.t1 = time.perf_counter()
+        return self
+
+    def ms(self) -> float:
+        if self.cuda:
+            self.t1.synchronize()
+            return self.t0.elapsed_time(self.t1)
+        return (self.t1 - self.t0) * 1e3
+
+
+class Engine:
+    """Continuous batching over ``max_batch`` slots of a ``max_seq`` cache.
+
+    ``temperature > 0`` samples from the softmax of the logits at that
+    temperature with ``generator`` (a ``numpy.random.Generator``, required
+    then); greedy decoding (the default) takes the argmax and needs none.
+    """
+
+    def __init__(self, model: Model, params, max_batch: int = 8,
+                 max_seq: int = 256, temperature: float = 0.0,
+                 eos_id: int = -1,
+                 generator: Optional[np.random.Generator] = None):
+        if temperature > 0 and generator is None:
+            raise ValueError("temperature > 0 samples: pass a generator "
+                             "(numpy.random.Generator)")
+        self.model = model
+        self.cfg = model.cfg
+        self.params = params
+        self.device = tree_leaves(params)[0].device
+        self.B = max_batch
+        self.S = max_seq
+        self.temperature = temperature
+        self.eos_id = eos_id
+        self.generator = generator
+        self.cache = model.init_cache(self.B, self.S,
+                                      torch_dtype(self.cfg.dtype),
+                                      device=self.device)
+        self.pos = np.zeros(self.B, np.int64)         # next write index / slot
+        self.slots: List[Optional[Request]] = [None] * self.B
+        self._prefill_t: List[Tuple[int, _Timer]] = []
+        self._decode_t: List[_Timer] = []
+
+    # -- prefill --------------------------------------------------------------
+
+    def _prefill(self, tokens):
+        """Single-request prefill; returns (last_logits, per-layer caches)."""
+        logits, caches = self.model.forward(self.params, {"tokens": tokens})
+        return logits[:, -1], caches
+
+    @torch.no_grad()
+    def admit(self, req: Request) -> bool:
+        """Prefill a request into a free slot; False if the engine is
+        full."""
+        try:
+            slot = self.slots.index(None)
+        except ValueError:
+            return False
+        timer = _Timer(self.device)
+        toks = torch.as_tensor(np.asarray(req.prompt), dtype=torch.long,
+                               device=self.device)[None, :]
+        last_logits, caches = self._prefill(toks)
+        S_p = toks.shape[1]
+        # handoff: set the prefill K/V (or conv and SSM states) into the
+        # slot's cache rows — a set, so a recycled slot keeps no stale row
+        # that the decode mask would let through
+        layers = self.cache["layers"]
+        for name, c in caches.items():
+            dst = layers[name]
+            if "k" in c:  # attention
+                dst["k"][:, slot, :S_p] = c["k"][:, 0].to(dst["k"].dtype)
+                dst["v"][:, slot, :S_p] = c["v"][:, 0].to(dst["v"].dtype)
+            else:          # mamba states
+                dst["conv"][:, slot] = c["conv"][:, 0].to(dst["conv"].dtype)
+                dst["ssm"][:, slot] = c["ssm"][:, 0]
+        timer.stop()
+        self.pos[slot] = S_p
+        req.out = []
+        first = self._sample(last_logits[0].float().cpu().numpy())
+        self._prefill_t.append((req.uid, timer))
+        req.out.append(int(first))
+        self.slots[slot] = req
+        return True
+
+    # -- decode ---------------------------------------------------------------
+
+    def _sample(self, logits: np.ndarray) -> int:
+        logits = logits[: self.cfg.vocab]
+        if self.temperature <= 0:
+            return int(np.argmax(logits))
+        p = np.exp((logits - logits.max()) / self.temperature)
+        p = p / p.sum()
+        return int(self.generator.choice(len(p), p=p))
+
+    @torch.no_grad()
+    def step(self) -> List[Tuple[int, int]]:
+        """One decode step for every live slot; returns [(uid, token)]."""
+        live = [i for i, r in enumerate(self.slots) if r is not None]
+        if not live:
+            return []
+        tokens = np.zeros((self.B, 1), np.int64)
+        for i in live:
+            tokens[i, 0] = self.slots[i].out[-1]
+        timer = _Timer(self.device)
+        logits, self.cache = self.model.decode_step(
+            self.params, self.cache,
+            torch.from_numpy(tokens).to(self.device),
+            torch.from_numpy(self.pos.copy()).to(self.device))
+        timer.stop()
+        self._decode_t.append(timer)
+        out = []
+        logits_np = logits[:, 0].float().cpu().numpy()
+        for i in live:
+            req = self.slots[i]
+            tok = self._sample(logits_np[i])
+            req.out.append(tok)
+            self.pos[i] += 1
+            out.append((req.uid, tok))
+            if tok == self.eos_id or len(req.out) >= req.max_new \
+                    or self.pos[i] >= self.S - 1:
+                req.done = True
+                self.slots[i] = None
+        return out
+
+    def run(self, requests: List[Request]) -> Dict[int, List[int]]:
+        """Serve a list of requests to completion (continuous batching)."""
+        pending = list(requests)
+        results: Dict[int, List[int]] = {}
+        while pending or any(s is not None for s in self.slots):
+            while pending and self.admit(pending[0]):
+                pending.pop(0)
+            self.step()
+            for r in requests:
+                if r.done and r.uid not in results:
+                    results[r.uid] = r.out
+        return results
+
+    def timings(self) -> Dict[str, object]:
+        """Device milliseconds of every prefill (``{uid: ms}``: model
+        forward and cache handoff) and every decode step (a list), in
+        order. On a card: CUDA events."""
+        return {"prefill_ms": {uid: t.ms() for uid, t in self._prefill_t},
+                "decode_ms": [t.ms() for t in self._decode_t]}
+
+
+__all__ = ["Engine", "Request"]

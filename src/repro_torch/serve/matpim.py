@@ -40,8 +40,14 @@ sampling stream (``seed=``), so a stream of requests gives the reference
 service's bits under the same seed;
 ``FaultRealization`` requests coalesce by concatenating their masks along
 the batch axis. Fault buckets replay on ``torch`` (the kernels take no
-faults). Not ported yet: multi-device dispatch (``devices > 1``,
-``distributed/mesh_exec.py``) raises.
+faults).
+
+``devices=D > 1`` dispatches up to D independent ready buckets at once, one
+per device slot, on a pool of D threads; slot ``s`` runs on
+``cuda:(s % device_count)`` on a stream of its own (on a CPU service, the
+CPU). Per-ticket results equal the serial loop's. ``FaultModel`` buckets
+stay serial, because they share one sampling stream. On one card every
+slot shares it; placement on distinct cards is written but unverified.
 
 :meth:`PlanService.tiled` is the pipeline-facing fetch (exact shapes, no
 bucketing), and :func:`get_default_service` the process-wide service the
@@ -60,6 +66,7 @@ application pipelines (:mod:`repro_torch.apps`) fetch their plans from.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import time
@@ -67,6 +74,7 @@ from collections import OrderedDict
 from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..core.compile import RunnerCache
 from ..core.engine import parse_backend, resolve_device
@@ -74,7 +82,7 @@ from ..core.fused import prewarm_replay
 from ..core.kernel_exec import kernels_eligible
 from ..core.tiling import (TiledBinaryMatvec, TiledConv2d, TiledMatvec,
                            majority_sign)
-from ..device.faults import FaultRealization
+from ..device.faults import FaultModel, FaultRealization
 from ..obs import metrics as _metrics
 from ..obs.trace import span as _span
 from .compile_pool import CompilePool
@@ -156,6 +164,7 @@ class Ticket:
     backend: Optional[str] = None   # engine label of that batch
     queue_steps: int = 0            # serve-loop steps spent waiting
     submitted_s: Optional[float] = None  # perf_counter stamp at submit
+    device: int = 0                 # device slot the serving bucket ran on
     done: bool = False
 
 
@@ -179,6 +188,7 @@ class _Pending:
     finalize: Callable              # partials -> request result
     faults: object = None
     submitted_step: int = 0
+    running: bool = False           # claimed by an in-flight bucket execute
 
 
 def _concat_realizations(reals: List[FaultRealization]) -> FaultRealization:
@@ -203,7 +213,13 @@ class PlanService:
     disables shape bucketing. ``seed`` seeds the one numpy stream every
     ``FaultModel`` bucket draws from, in execution order. A coarse
     re-entrant lock makes submit, flush and step safe to call from several
-    threads; execution is serial.
+    threads; it is not held while a bucket executes.
+
+    ``devices`` (default 1: the serial loop) lets up to that many
+    independent ready buckets execute at once, each on a device slot:
+    slot ``s`` is ``cuda:(s % torch.cuda.device_count())`` with a stream of
+    its own on a CUDA service, the CPU on a CPU one. Results equal the
+    serial loop's, ticket for ticket; ``Ticket.device`` records the slot.
 
     ``backend="auto"`` consults the autotuner's table per (program, batch
     bucket): ``tunings`` pins a :class:`~repro_torch.core.autotune.
@@ -234,10 +250,6 @@ class PlanService:
                  compile_queue: int = 8, store=None,
                  devices: Optional[int] = None,
                  prewarm: Optional[bool] = None):
-        if devices is not None and int(devices) > 1:
-            raise NotImplementedError(
-                "multi-device dispatch (distributed/mesh_exec.py) is not "
-                "ported to repro_torch yet")
         self.device = resolve_device(device)
         if not fuse and backend in ("torch", "auto"):
             # honor the unfused policy explicitly; auto would re-fuse
@@ -284,16 +296,25 @@ class PlanService:
         self._compiling: Dict[tuple, tuple] = {}
         self.prewarm = ((self.store is not None or self.async_compile)
                         if prewarm is None else bool(prewarm))
+        # multi-device bucket dispatch: up to ``devices`` independent ready
+        # buckets execute concurrently, one per device slot
+        self.devices = max(1, int(devices)) if devices else 1
+        self._exec_pool = None          # lazy ThreadPoolExecutor (devices>1)
+        self._streams: Dict[int, torch.cuda.Stream] = {}
         # workers never take this lock (job closures touch only the wrapper
         # and the store), so holding it while waiting on a job cannot
         # deadlock
         self._lock = threading.RLock()
 
     def close(self) -> None:
-        """Shut down the compile pool; in-flight jobs finish first."""
+        """Shut down the compile pool and the device-slot threads; in-flight
+        jobs finish first."""
         if self._pool is not None:
             self._pool.shutdown()
             self._pool = None
+        if self._exec_pool is not None:
+            self._exec_pool.shutdown(wait=True)
+            self._exec_pool = None
 
     # -- plan cache ----------------------------------------------------------
 
@@ -671,16 +692,19 @@ class PlanService:
             -> "OrderedDict[tuple, List[_Pending]]":
         """Pending requests grouped by exec key, in submission order;
         ``ready_only`` skips buckets parked behind an in-flight async
-        compile."""
+        compile. Requests claimed by an in-flight bucket are never
+        regrouped."""
         comp = self._compiling
         out: "OrderedDict[tuple, List[_Pending]]" = OrderedDict()
         for p in self._queue:
+            if p.running:
+                continue
             if ready_only and comp and p.ticket.key in comp:
                 continue
             out.setdefault(self._exec_key(p), []).append(p)
         return out
 
-    def _execute_bucket(self, plan, mems: np.ndarray, faults, rng):
+    def _execute_bucket(self, plan, mems: np.ndarray, faults, rng, device):
         """One engine call for a coalesced bucket; the autotuner's
         observation point when the service runs ``backend="auto"``.
 
@@ -699,119 +723,221 @@ class PlanService:
             if self.autotune and table.lookup(key, bucket) is None:
                 _metrics.counter("serve.inline_tunes").inc()
                 res, e = at.autotune_execute(cp, mems, table, cheap=True,
-                                             device=self.device)
+                                             device=device)
                 res.backend = (f"auto:{e.backend}@{e.max_batch}"
                                if e.max_batch is not None
                                else f"auto:{e.backend}")
                 return res
             t0 = time.perf_counter()
             res = plan.execute_batch(mems, backend=self.backend,
-                                     device=self.device,
+                                     device=device,
                                      max_batch=self.max_batch, tunings=table)
             us = (time.perf_counter() - t0) * 1e6
             if res.backend.startswith("auto:"):
-                # label grammar: auto:<backend>[@<max_batch>]
-                resolved, _, mb = res.backend[len("auto:"):].partition("@")
+                # label grammar: auto:<backend>[@<max_batch>][+mesh<D>] —
+                # sharded walls train the entry for *that* topology only
+                resolved, _, meshpart = \
+                    res.backend[len("auto:"):].partition("+mesh")
+                resolved, _, mb = resolved.partition("@")
                 table.observe(key, bucket, resolved, us,
-                              max_batch=int(mb) if mb else None)
+                              max_batch=int(mb) if mb else None,
+                              topo=int(meshpart) if meshpart else 1)
             return res
         return plan.execute_batch(mems, backend=self.backend,
-                                  device=self.device,
+                                  device=device,
                                   max_batch=self.max_batch, faults=faults,
                                   rng=rng, tunings=self.tunings)
 
-    def _run_bucket(self, pends: List[_Pending]) -> List[Ticket]:
-        """Coalesce one bucket onto the engine batch axis and scatter back
-        (caller holds the lock)."""
+    def _device_ctx(self, slot: int):
+        """The device and stream context of device slot ``slot``.
+
+        One slot (``devices=1``) or a CPU service: the service's device, no
+        stream. Otherwise ``cuda:(slot % device_count)`` under a stream of
+        the slot's own, so buckets on distinct slots queue on distinct
+        streams (and, with several cards, on distinct cards).
+        """
+        if self.devices <= 1 or self.device.type != "cuda":
+            return self.device, contextlib.nullcontext()
+        dev = torch.device("cuda", slot % torch.cuda.device_count())
+        with self._lock:
+            stream = self._streams.get(slot)
+            if stream is None:
+                stream = self._streams[slot] = torch.cuda.Stream(device=dev)
+        return dev, torch.cuda.stream(stream)
+
+    def _run_bucket(self, pends: List[_Pending], slot: int = 0
+                    ) -> List[Ticket]:
+        """Coalesce one bucket onto the engine batch axis and scatter back.
+
+        Thread-safe: load and execute run without the service lock (the
+        part :meth:`_run_buckets` overlaps across device slots); the
+        warm-up claim and the decode/scatter bookkeeping take it.
+        """
         w = pends[0].wrapper
         plan = w.plan
         units = sum(p.ticket.n_units for p in pends)
-        with _span("serve.bucket", kind=pends[0].ticket.kind, units=units,
-                   requests=len(pends)):
-            with _span("serve.load", units=units):
-                mems = np.zeros((units, plan.rows, plan.cols),
-                                dtype=np.uint8)
-                off = 0
-                for p in pends:
-                    for b in range(p.ticket.n_units):
-                        p.load(b, mems[off + b])
-                    off += p.ticket.n_units
-            faults = rng = None
-            if isinstance(pends[0].faults, FaultRealization):
-                faults = _concat_realizations([p.faults for p in pends])
-            elif pends[0].faults is not None:
-                faults, rng = pends[0].faults, self._rng
-            warm_up = not getattr(w, "_served_once", False)
-            w._served_once = True
-            t0 = time.perf_counter()
-            res = self._execute_bucket(plan, mems, faults, rng)
-            wall = time.perf_counter() - t0
-            _metrics.histogram("serve.device.busy_us").observe(wall * 1e6)
-            if warm_up:
-                # the first engine batch through a plan builds its replay
-                # tables (and loads the kernel library): warm-up, not steady
-                self.stats.warmup_s += wall
-                _metrics.counter("serve.warmup_s").inc(wall)
-            done = []
-            with _span("serve.decode", units=units):
-                off = 0
-                for p in pends:
-                    partials = [p.decode(b, res.mem[off + b])
-                                for b in range(p.ticket.n_units)]
-                    off += p.ticket.n_units
-                    t = p.ticket
-                    t.result, t.reduce_depth = p.finalize(partials)
-                    t.cycles = res.cycles
-                    t.batch_wall_s = wall
-                    t.wall_s = time.perf_counter() - t.submitted_s
-                    t.batch_units = units
-                    t.backend = res.backend
-                    # steps the request sat queued before the serving one
-                    t.queue_steps = max(0, self._step - p.submitted_step - 1)
-                    t.done = True
-                    _metrics.histogram("serve.request_latency_us") \
-                        .observe(t.wall_s * 1e6)
-                    _metrics.histogram("serve.queue_steps") \
-                        .observe(t.queue_steps)
-                    done.append(t)
-                    self._queue.remove(p)
-        self.stats.batches += 1
-        self.stats.units += units
+        try:
+            with _span("serve.bucket", kind=pends[0].ticket.kind,
+                       units=units, requests=len(pends), device=slot):
+                with _span("serve.load", units=units):
+                    mems = np.zeros((units, plan.rows, plan.cols),
+                                    dtype=np.uint8)
+                    off = 0
+                    for p in pends:
+                        for b in range(p.ticket.n_units):
+                            p.load(b, mems[off + b])
+                        off += p.ticket.n_units
+                faults = rng = None
+                if isinstance(pends[0].faults, FaultRealization):
+                    faults = _concat_realizations([p.faults for p in pends])
+                elif pends[0].faults is not None:
+                    faults, rng = pends[0].faults, self._rng
+                with self._lock:
+                    # claim the warm-up before executing so two concurrent
+                    # buckets on one plan cannot both book it
+                    warm_up = not getattr(w, "_served_once", False)
+                    w._served_once = True
+                dev, ctx = self._device_ctx(slot)
+                t0 = time.perf_counter()
+                with ctx:
+                    res = self._execute_bucket(plan, mems, faults, rng, dev)
+                wall = time.perf_counter() - t0
+                _metrics.histogram("serve.device.busy_us").observe(
+                    wall * 1e6)
+                _metrics.counter(f"serve.device.{slot}.batches").inc()
+                _metrics.histogram(f"serve.device.{slot}.busy_us") \
+                    .observe(wall * 1e6)
+                done = []
+                with _span("serve.decode", units=units), self._lock:
+                    if warm_up:
+                        # the first engine batch through a plan builds its
+                        # replay tables (and loads the kernel library):
+                        # warm-up, not steady state
+                        self.stats.warmup_s += wall
+                        _metrics.counter("serve.warmup_s").inc(wall)
+                    off = 0
+                    for p in pends:
+                        partials = [p.decode(b, res.mem[off + b])
+                                    for b in range(p.ticket.n_units)]
+                        off += p.ticket.n_units
+                        t = p.ticket
+                        t.result, t.reduce_depth = p.finalize(partials)
+                        t.cycles = res.cycles
+                        t.batch_wall_s = wall
+                        t.wall_s = time.perf_counter() - t.submitted_s
+                        t.batch_units = units
+                        t.backend = res.backend
+                        t.device = slot
+                        # steps the request sat queued before the serving one
+                        t.queue_steps = max(
+                            0, self._step - p.submitted_step - 1)
+                        t.done = True
+                        _metrics.histogram("serve.request_latency_us") \
+                            .observe(t.wall_s * 1e6)
+                        _metrics.histogram("serve.queue_steps") \
+                            .observe(t.queue_steps)
+                        done.append(t)
+                        self._queue.remove(p)
+        finally:
+            for p in pends:     # release claims (no-op for scattered ones)
+                p.running = False
+        with self._lock:
+            self.stats.batches += 1
+            self.stats.units += units
         _metrics.counter("serve.batches").inc()
         _metrics.counter("serve.units").inc(units)
         _metrics.histogram("serve.batch_units").observe(units)
         return done
+
+    def _run_buckets(self, ready: List[List[_Pending]]) -> List[Ticket]:
+        """Execute independent ready buckets, overlapping across device
+        slots when ``devices > 1``.
+
+        ``FaultModel`` buckets stay serial: they draw from the service's
+        one sampling stream, and overlapping them would make the draws
+        depend on scheduling. The others go to a pool of ``devices``
+        threads, one bucket per slot.
+        """
+        if self.devices <= 1 or len(ready) <= 1:
+            done = []
+            for ps in ready:
+                done.extend(self._run_bucket(ps))
+            return done
+        par, ser = [], []
+        for ps in ready:
+            (ser if isinstance(ps[0].faults, FaultModel) else par).append(ps)
+        done: List[Ticket] = []
+        if len(par) > 1:
+            if self._exec_pool is None:
+                from concurrent.futures import ThreadPoolExecutor
+                self._exec_pool = ThreadPoolExecutor(
+                    max_workers=self.devices,
+                    thread_name_prefix="serve-device")
+            futs = [self._exec_pool.submit(self._run_bucket, ps,
+                                           i % self.devices)
+                    for i, ps in enumerate(par)]
+            for f in futs:
+                done.extend(f.result())
+        else:
+            for ps in par:
+                done.extend(self._run_bucket(ps))
+        for ps in ser:
+            done.extend(self._run_bucket(ps))
+        return done
+
+    def _claim(self, ready: List[List[_Pending]]) -> None:
+        """Mark the selected buckets in-flight (caller holds the lock), so
+        a concurrent flush or step never runs them twice."""
+        for ps in ready:
+            for p in ps:
+                p.running = True
 
     def _next_buckets(self) -> list:
         """Ready buckets; when every pending bucket is parked behind an
         async compile, wait for one to land. A bucket whose job is gone
         (it failed and raised) runs anyway: execute compiles it."""
         self._collect_landed()
-        buckets = list(self._buckets().values())
+        with self._lock:
+            buckets = list(self._buckets().values())
         if not buckets and self._compiling:
             self._collect_landed(wait=True, timeout=1.0)
+        with self._lock:
             buckets = list(self._buckets().values())
-        if not buckets and not self._compiling:
-            buckets = list(self._buckets(ready_only=False).values())
+            if not buckets and not self._compiling:
+                buckets = list(self._buckets(ready_only=False).values())
         return buckets
 
     def flush(self) -> List[Ticket]:
-        """Run every pending request, one engine batch per bucket; buckets
-        parked behind an async compile run once their plan lands."""
+        """Run every pending request, one engine batch per bucket; with
+        ``devices > 1`` up to that many independent ready buckets execute
+        at once per iteration. Buckets parked behind an async compile run
+        once their plan lands."""
         done = []
-        with self._lock, _span("serve.flush",
-                               pending_units=self.pending_units):
+        with _span("serve.flush", pending_units=self.pending_units,
+                   devices=self.devices):
             while self._queue:
                 buckets = self._next_buckets()
-                if buckets:
-                    self._step += 1
-                    done.extend(self._run_bucket(buckets[0]))
+                with self._lock:
+                    ready = [ps for ps in buckets
+                             if not any(p.running for p in ps)]
+                    ready = ready[:self.devices]
+                    if ready:
+                        self._step += 1
+                        self._claim(ready)
+                if ready:
+                    done.extend(self._run_buckets(ready))
+                elif not self._compiling:
+                    # every pending request is claimed by another thread's
+                    # in-flight bucket; yield until it scatters
+                    time.sleep(0.001)
         _metrics.gauge("serve.queue_depth_units").set(0)
         return done
 
     def step(self, max_units: Optional[int] = None) -> List[Ticket]:
         """One serve-loop step: execute the fullest bucket (up to
-        ``max_units`` crossbar images), leave the rest queued.
+        ``max_units`` crossbar images), leave the rest queued; with
+        ``devices > 1`` the next-fullest ready buckets fill the other
+        slots.
 
         Anti-starvation aging: a bucket whose oldest request has waited
         ``max_starve_steps`` steps is served first (oldest such bucket
@@ -819,13 +945,13 @@ class PlanService:
         an async compile are not ready; when every pending bucket is, the
         step waits for a plan to land rather than return empty-handed.
         """
+        if not self._queue:
+            return []
+        _metrics.gauge("serve.queue_depth_units").set(self.pending_units)
+        buckets = self._next_buckets()
+        if not buckets:
+            return []
         with self._lock:
-            if not self._queue:
-                return []
-            _metrics.gauge("serve.queue_depth_units").set(self.pending_units)
-            buckets = self._next_buckets()
-            if not buckets:
-                return []
             self._step += 1
 
             def age(ps):
@@ -836,8 +962,9 @@ class PlanService:
 
             starved = [ps for ps in buckets
                        if age(ps) > self.max_starve_steps]
-            pends = (max(starved, key=age) if starved
-                     else max(buckets, key=units_of))
+            primary = (max(starved, key=age) if starved
+                       else max(buckets, key=units_of))
+            pends = primary
             if max_units is not None:
                 take, acc = [], 0
                 for p in pends:
@@ -846,12 +973,20 @@ class PlanService:
                     take.append(p)
                     acc += p.ticket.n_units
                 pends = take
-            with _span("serve.step", step=self._step,
-                       pending_units=self.pending_units,
-                       starved=bool(starved)):
-                done = self._run_bucket(pends)
-            _metrics.counter("serve.steps").inc()
-            _metrics.gauge("serve.queue_depth_units").set(self.pending_units)
+            ready = [pends]
+            if self.devices > 1:
+                # fill the other device slots with the next-fullest ready
+                # buckets so heterogeneous streams overlap
+                rest = sorted((ps for ps in buckets if ps is not primary),
+                              key=units_of, reverse=True)
+                ready += rest[:self.devices - 1]
+            self._claim(ready)
+        with _span("serve.step", step=self._step,
+                   pending_units=self.pending_units,
+                   starved=bool(starved), buckets=len(ready)):
+            done = self._run_buckets(ready)
+        _metrics.counter("serve.steps").inc()
+        _metrics.gauge("serve.queue_depth_units").set(self.pending_units)
         return done
 
     def run_stream(self, requests: Iterable[ServeRequest], slots: int = 64,

@@ -216,10 +216,15 @@ def test_backend_contracts():
                                    1, 1), mem, backend="numpy",
                        faults=RefFaultModel(p_switch=0.5), rng=5)
     np.testing.assert_array_equal(got.mem, want.mem)
-    with pytest.raises(NotImplementedError, match="mesh_exec"):
-        execute(cp, mem, device="cpu", mesh=object())
     out = execute(cp, mem, device="cpu").mem
     assert out.shape == (8, 8) and out[:, 1].all()
+    # multi-device execution is ported: a mesh of one slot (or one without
+    # a tiles axis) runs the single-device path silently, with its bits
+    from repro_torch.distributed.mesh_exec import tile_mesh
+    for mesh in (tile_mesh(1, devices=["cpu"]), object()):
+        res = execute(cp, mem, device="cpu", mesh=mesh)
+        np.testing.assert_array_equal(res.mem, out)
+        assert res.backend == "torch"
     # "auto" is ported: no kernel computes this trace, so it replays fused
     res = execute(cp, mem, backend="auto", device="cpu",
                   tunings=TuningTable())

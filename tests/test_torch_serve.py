@@ -115,8 +115,10 @@ def test_service_rejects_what_is_not_ported(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             PlanService(**GEOM)              # default device is CUDA
-    with pytest.raises(NotImplementedError, match="mesh_exec"):
-        PlanService(device="cpu", devices=2, **GEOM)
+    # multi-device dispatch is ported (tests/test_torch_mesh.py)
+    svc = PlanService(device="cpu", devices=2, **GEOM)
+    assert svc.devices == 2
+    svc.close()
     with pytest.raises(ValueError):
         PlanService(device="cpu", backend="numpy", **GEOM)
     # ported since: the autotuner, the compile pool and the plan store
