@@ -25,7 +25,8 @@ Differences from the reference:
   picks ``kernels`` for a trace the kernels compute
   (``kernel_exec.kernels_eligible``), else ``torch-fused`` when the trace
   has a schedule, else ``torch-unfused``; under a mesh (``topo > 1``) it
-  picks a ``torch`` variant, the only family that shards.
+  picks a ``torch`` variant, the only family that shards (the reference's
+  choice, not measured against ``kernels`` on the H100).
 * The process-default table is named by ``$MATPIM_TORCH_TUNINGS``, not the
   reference's ``$MATPIM_TUNINGS``: rows that name the other package's
   backends are unrunnable here, so a shared file would mix two tables.
@@ -247,7 +248,10 @@ def heuristic(cp, B: int, topo: int = 1) -> Tuple[str, Optional[int]]:
     ``topo > 1`` (a usable ``tiles`` mesh under the batch) picks a
     ``torch`` variant whatever the trace: only ``torch`` executes sharded,
     so ``kernels`` would run the topology it was asked to use on one
-    device."""
+    device. This is the reference's reasoning, unmeasured on the H100:
+    there a two-slot sharded ``torch-fused`` replay on one card ran slower
+    than one slot, and ``torch`` replay slower than ``kernels``. A tuned
+    entry at that topology overrides it."""
     from .kernel_exec import kernels_eligible
     if kernels_eligible(cp) and topo <= 1:
         return "kernels", None

@@ -26,15 +26,17 @@ slot count, :func:`try_run_sharded` returns ``None`` and the engine runs
 its single-device path.
 
 A slot's device is the mesh's entry for it. On CUDA each slot issues its
-work on a stream of its own, so one slot's replay can overlap another's;
-slots that name one card share its SMs. ``tile_mesh(devices=["cpu"] * 8)``
-stands in for the reference's virtual XLA devices in the CPU tests.
+work on a stream of its own (:func:`slot_stream`, shared with
+``PlanService``'s device slots), so one slot's replay can overlap
+another's; slots that name one card share its SMs.
+``tile_mesh(devices=["cpu"] * 8)`` stands in for the reference's virtual XLA devices in the CPU tests.
 """
 from __future__ import annotations
 
 import contextlib
 import math
-from typing import List, Optional, Sequence, Tuple
+import threading
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -101,6 +103,28 @@ def chunk_widths(B: int, D: int, cap: int = MAX_CHUNK) -> List[int]:
     return [base + 1 if i < rem else base for i in range(S)]
 
 
+_streams: Dict[Tuple[int, int], "torch.cuda.Stream"] = {}
+_streams_lock = threading.Lock()
+
+
+def slot_stream(device, slot: int):
+    """``(stream, context)`` of device slot ``slot`` on ``device``: on a
+    CUDA device one stream per (card, slot), made on first use and kept,
+    so everything placed on a slot (the engine's sharded chunks, a
+    ``PlanService`` bucket) queues on the slot's one stream, and distinct
+    slots on distinct streams; elsewhere no stream and a null context."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None, contextlib.nullcontext()
+    idx = (device.index if device.index is not None
+           else torch.cuda.current_device())
+    with _streams_lock:
+        stream = _streams.get((idx, slot))
+        if stream is None:
+            stream = _streams[(idx, slot)] = torch.cuda.Stream(device=idx)
+    return stream, torch.cuda.stream(stream)
+
+
 def _slot_devices(mesh, D: int) -> List[torch.device]:
     """The device of each ``tiles`` slot: the mesh's devices along the
     tiles axis, at index 0 of every other axis."""
@@ -147,10 +171,7 @@ def try_run_sharded(cp, mem: np.ndarray, variant: str, mesh
                batch=B, variant=variant):
         outs = []
         for d, dev in enumerate(_slot_devices(mesh, D)):
-            stream = (torch.cuda.Stream(device=dev) if dev.type == "cuda"
-                      else None)
-            ctx = (torch.cuda.stream(stream) if stream is not None
-                   else contextlib.nullcontext())
+            stream, ctx = slot_stream(dev, d)
             ws = widths[d * per:(d + 1) * per]
             lo, hi = int(offs[d * per]), int(offs[(d + 1) * per])
             with ctx:
@@ -176,4 +197,4 @@ def try_run_sharded(cp, mem: np.ndarray, variant: str, mesh
 
 
 __all__ = ["MAX_CHUNK", "TILE_AXIS", "chunk_widths", "mesh_devices",
-           "tile_mesh", "try_run_sharded"]
+           "slot_stream", "tile_mesh", "try_run_sharded"]

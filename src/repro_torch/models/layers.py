@@ -5,9 +5,11 @@ The port of ``src/repro/models/layers.py``. All functions are pure:
 ``apply(params, cfg, x, ...) -> y`` on torch tensors, with the reference's
 arithmetic: float32 norms, rotary angles, attention logits and softmax,
 ``-1e30`` masking, the tanh GeLU, and MoE dispatch and combine tensors in
-bfloat16. Parameter *specs* (shape + logical sharding axes) are built by
-the ``*_specs`` functions; see :mod:`.spec`. Activation constraints use
-logical names resolved in :mod:`repro_torch.distributed.sharding`.
+bfloat16. A float64 model computes in float64 where the reference takes
+float32 (:func:`.spec.wide`), as a precision reference. Parameter *specs*
+(shape + logical sharding axes) are built by the ``*_specs`` functions; see
+:mod:`.spec`. Activation constraints use logical names resolved in
+:mod:`repro_torch.distributed.sharding`.
 """
 from __future__ import annotations
 
@@ -20,9 +22,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..distributed.sharding import constrain
-from .spec import Spec
-
-F32 = torch.float32
+from .spec import Spec, wide
 
 
 def _gelu(x):
@@ -45,15 +45,16 @@ def norm_specs(cfg: ModelConfig):
 
 
 def apply_norm(p, cfg: ModelConfig, x):
-    xf = x.to(F32)
+    acc = wide(x.dtype)
+    xf = x.to(acc)
     if cfg.norm == "rmsnorm":
         y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + 1e-6)
-        return (y * p["w"].to(F32)).to(x.dtype)
+        return (y * p["w"].to(acc)).to(x.dtype)
     mu = xf.mean(-1, keepdim=True)
     var = (xf - mu).square().mean(-1, keepdim=True)
     y = (xf - mu) * torch.rsqrt(var + 1e-6)
     if cfg.norm == "layernorm":
-        y = y * p["w"].to(F32) + p["b"].to(F32)
+        y = y * p["w"].to(acc) + p["b"].to(acc)
     return y.to(x.dtype)
 
 
@@ -62,11 +63,11 @@ def apply_norm(p, cfg: ModelConfig, x):
 # ---------------------------------------------------------------------------
 
 
-def _rope_angles(pos, hd: int, theta: float):
-    """pos (..., S) -> cos/sin (..., S, hd/2)."""
-    exps = torch.arange(0, hd, 2, dtype=F32, device=pos.device) / hd
+def _rope_angles(pos, hd: int, theta: float, dtype=torch.float32):
+    """pos (..., S) -> cos/sin (..., S, hd/2), in ``dtype``."""
+    exps = torch.arange(0, hd, 2, dtype=dtype, device=pos.device) / hd
     freqs = 1.0 / torch.pow(theta, exps)
-    ang = pos[..., None].to(F32) * freqs
+    ang = pos[..., None].to(dtype) * freqs
     return torch.cos(ang), torch.sin(ang)
 
 
@@ -82,19 +83,20 @@ def _mrope_index(hd: int, sections: tuple, device: torch.device):
 
 def apply_rope(x, pos, theta: float, mrope_sections=None):
     """x (B, S, H, hd); pos (B, S) or (3, B, S) for M-RoPE."""
+    acc = wide(x.dtype)
     hd = x.shape[-1]
     if mrope_sections is None:
-        cos, sin = _rope_angles(pos, hd, theta)          # (B, S, hd/2)
+        cos, sin = _rope_angles(pos, hd, theta, acc)     # (B, S, hd/2)
     else:
         # M-RoPE: the hd/2 frequencies are partitioned into (t, h, w)
         # sections, each rotated by its own position stream.
-        cos3, sin3 = _rope_angles(pos, hd, theta)        # (3, B, S, hd/2)
+        cos3, sin3 = _rope_angles(pos, hd, theta, acc)   # (3, B, S, hd/2)
         idx, f = _mrope_index(hd, tuple(mrope_sections), x.device)
         cos = cos3.movedim(0, -1)[..., f, idx]
         sin = sin3.movedim(0, -1)[..., f, idx]
     cos = cos[:, :, None, :]
     sin = sin[:, :, None, :]
-    xf1, xf2 = x[..., ::2].to(F32), x[..., 1::2].to(F32)
+    xf1, xf2 = x[..., ::2].to(acc), x[..., 1::2].to(acc)
     o1 = xf1 * cos - xf2 * sin
     o2 = xf2 * cos + xf1 * sin
     return torch.stack([o1, o2], dim=-1).reshape(x.shape).to(x.dtype)
@@ -130,18 +132,20 @@ def _sdpa(q, k, v, mask, cfg: ModelConfig):
 
     The reference's arithmetic, written out: float32 logits scaled by
     ``1/sqrt(hd)``, masked to ``-1e30``, a float32 softmax and a float32
-    weighted sum, cast back to q's dtype.
+    weighted sum, cast back to q's dtype (float64 throughout for a float64
+    model, :func:`~repro_torch.models.spec.wide`).
     """
+    acc = wide(q.dtype)
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
     rep = H // KV
     qg = q.reshape(B, Sq, KV, rep, hd)
-    logits = torch.einsum("bqkrh,bskh->bkrqs", qg.to(F32), k.to(F32))
+    logits = torch.einsum("bqkrh,bskh->bkrqs", qg.to(acc), k.to(acc))
     logits = logits / math.sqrt(hd)
     if mask is not None:
         logits = logits.masked_fill(~mask[:, None, None, :, :], -1e30)
     w = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bkrqs,bskh->bqkrh", w, v.to(F32))
+    out = torch.einsum("bkrqs,bskh->bqkrh", w, v.to(acc))
     return out.reshape(B, Sq, H, hd).to(q.dtype)
 
 
@@ -235,29 +239,30 @@ def _sign_ste(x):
 
 
 def apply_mlp(p, cfg: ModelConfig, x):
+    acc = wide(x.dtype)
     if cfg.binary_ffn:
         # MatPIM §II-B as a layer: the signs of the activations times the
         # signs of the weights, as float32 products of ±1 values (each sum
         # of ±1 terms is an exact integer in float32). No kernel of the
         # port computes it, as none of the reference's does.
-        xb = _sign_ste(x.to(F32))
+        xb = _sign_ste(x.to(acc))
         if cfg.act == "swiglu":
-            wb = _sign_ste(p["wi"].to(F32))
+            wb = _sign_ste(p["wi"].to(acc))
             h = torch.einsum("bsd,dcf->bcsf", xb, wb)
             h = F.silu(h[:, 0]) * h[:, 1]
         else:
             h = _gelu(torch.einsum("bsd,df->bsf", xb,
-                                   _sign_ste(p["wi"].to(F32))))
+                                   _sign_ste(p["wi"].to(acc))))
         h = constrain(h.to(x.dtype), ("batch", None, "mlp"))
-        y = torch.einsum("bsf,fd->bsd", _sign_ste(h.to(F32)),
-                         _sign_ste(p["wo"].to(F32))).to(x.dtype)
+        y = torch.einsum("bsf,fd->bsd", _sign_ste(h.to(acc)),
+                         _sign_ste(p["wo"].to(acc))).to(x.dtype)
         return constrain(y, ("batch", None, None))
     if cfg.act == "swiglu":
         h = torch.einsum("bsd,dcf->bcsf", x, p["wi"])
-        h = (F.silu(h[:, 0].to(F32)) * h[:, 1].to(F32)).to(x.dtype)
+        h = (F.silu(h[:, 0].to(acc)) * h[:, 1].to(acc)).to(x.dtype)
     else:
         h = torch.einsum("bsd,df->bsf", x, p["wi"])
-        h = _gelu(h.to(F32)).to(x.dtype)
+        h = _gelu(h.to(acc)).to(x.dtype)
     h = constrain(h, ("batch", None, "mlp"))
     y = torch.einsum("bsf,fd->bsd", h, p["wo"])
     return constrain(y, ("batch", None, None))
@@ -289,6 +294,7 @@ def apply_moe(p, cfg: ModelConfig, x):
     (G, Tg, E, C) with C = k·Tg·cf/E — linear in total tokens. Dispatch
     and combine are bfloat16, as in the reference (0/1 entries, and the
     renormalised gates rounded to bfloat16)."""
+    acc = wide(x.dtype)
     B, S, D = x.shape
     E, k = cfg.n_experts, cfg.experts_per_tok
     T = B * S
@@ -296,7 +302,7 @@ def apply_moe(p, cfg: ModelConfig, x):
     G = T // Tg
     xt = x.reshape(G, Tg, D)
     xt = constrain(xt, ("batch", None, None))
-    logits = torch.einsum("gtd,de->gte", xt.to(F32), p["router"].to(F32))
+    logits = torch.einsum("gtd,de->gte", xt.to(acc), p["router"].to(acc))
     gates = torch.softmax(logits, dim=-1)
     topg, topi = torch.topk(gates, k, dim=-1)                 # (G, Tg, k)
     topg = topg / torch.clamp(topg.sum(-1, keepdim=True), min=1e-9)
@@ -320,11 +326,11 @@ def apply_moe(p, cfg: ModelConfig, x):
     xe = constrain(xe, ("batch", "experts", None, None))
     if cfg.act == "swiglu":
         h = torch.einsum("gecd,edzf->gezcf", xe, p["wi"])
-        h = (F.silu(h[:, :, 0].to(F32))
-             * h[:, :, 1].to(F32)).to(x.dtype)
+        h = (F.silu(h[:, :, 0].to(acc))
+             * h[:, :, 1].to(acc)).to(x.dtype)
     else:
         h = _gelu(torch.einsum("gecd,edf->gecf", xe,
-                               p["wi"]).to(F32)).to(x.dtype)
+                               p["wi"]).to(acc)).to(x.dtype)
     h = constrain(h, ("batch", "experts", None, "mlp"))
     ye = torch.einsum("gecf,efd->gecd", h, p["wo"])
     y = torch.einsum("gtec,gecd->gtd", combine.to(ye.dtype), ye)
@@ -350,10 +356,11 @@ def embed(p, cfg: ModelConfig, ids):
 
 
 def unembed(p, cfg: ModelConfig, x):
+    acc = wide(x.dtype)
     w = p.get("unembed")
     if w is None:
         w = p["tok"].T
-    logits = torch.einsum("bsd,dv->bsv", x, w).to(F32)
+    logits = torch.einsum("bsd,dv->bsv", x, w).to(acc)
     return constrain(logits, ("batch", None, "vocab"))
 
 

@@ -28,11 +28,11 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig
+from ..core.engine import resolve_device
 from . import layers as L
 from . import mamba as M
-from .spec import Spec, stack_specs, torch_dtype, tree_map
+from .spec import Spec, stack_specs, torch_dtype, tree_map, wide
 
-F32 = torch.float32
 N_PATCHES = 256  # vlm stub: image patches prepended to the text sequence
 
 # activation checkpointing policies the reference takes; they matter only
@@ -282,9 +282,11 @@ class Model(torch.nn.Module):
     # -- decode ---------------------------------------------------------------
 
     def init_cache(self, B: int, S_max: int, dtype=torch.bfloat16,
-                   enc_seq: Optional[int] = None, device="cpu"):
-        """Zero caches, stacked over groups."""
+                   enc_seq: Optional[int] = None, device="cuda"):
+        """Zero caches, stacked over groups, on ``device`` (the card unless
+        another device is asked for; raises without CUDA)."""
         cfg = self.cfg
+        device = resolve_device(device)
         dtype = torch_dtype(dtype)
 
         def zeros(*shape, dt=dtype):
@@ -304,7 +306,8 @@ class Model(torch.nn.Module):
                 per_group[f"sub{i}"] = {
                     "conv": zeros(self.n_groups, B, cfg.conv_dim - 1, ch),
                     "ssm": zeros(self.n_groups, B, cfg.ssm_heads,
-                                 cfg.ssm_headdim, cfg.ssm_state, dt=F32),
+                                 cfg.ssm_headdim, cfg.ssm_state,
+                                 dt=wide(dtype)),
                 }
         cache: Dict[str, Any] = {"layers": per_group}
         if cfg.family == "encdec":
@@ -353,18 +356,19 @@ class Model(torch.nn.Module):
 
 
 def _sinusoid(S: int, D: int, dtype, device=None):
-    pos = torch.arange(S, dtype=F32, device=device)[:, None]
+    pos = torch.arange(S, dtype=wide(dtype), device=device)[:, None]
     return _sinusoid_table(pos, D, dtype)
 
 
 def _sinusoid_at(pos, D: int, dtype):
-    return _sinusoid_table(pos.to(F32)[:, None], D, dtype)
+    return _sinusoid_table(pos.to(wide(dtype))[:, None], D, dtype)
 
 
 def _sinusoid_table(pos, D: int, dtype):
-    dim = torch.arange(0, D, 2, dtype=F32, device=pos.device)[None, :]
+    acc = wide(dtype)
+    dim = torch.arange(0, D, 2, dtype=acc, device=pos.device)[None, :]
     ang = pos / torch.pow(10000.0, dim / D)
-    out = torch.zeros((pos.shape[0], D), dtype=F32, device=pos.device)
+    out = torch.zeros((pos.shape[0], D), dtype=acc, device=pos.device)
     out[:, 0::2] = torch.sin(ang)
     out[:, 1::2] = torch.cos(ang)
     return out.to(dtype)

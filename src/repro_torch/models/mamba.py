@@ -8,6 +8,7 @@ Chunked algorithm: an intra-chunk quadratic attention-like term plus an
 inter-chunk state recurrence, a loop over chunks where the reference runs
 ``lax.scan``. The state scan is not a matvec-with-reduction shape, so the
 paper's technique does not apply here (docs/ARCHITECTURE.md §Model stack).
+The scan computes in float32 (float64 for a float64 model, :func:`.spec.wide`).
 """
 from __future__ import annotations
 
@@ -18,9 +19,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..distributed.sharding import constrain
-from .spec import Spec
-
-F32 = torch.float32
+from .spec import Spec, wide
 
 
 def mamba_specs(cfg: ModelConfig):
@@ -48,12 +47,13 @@ def _split_proj(cfg: ModelConfig, zxbcdt):
 
 def _causal_conv(x, w, b):
     """Depthwise causal conv via static shifts. x (B,S,C), w (K,C)."""
+    acc = wide(x.dtype)
     K = w.shape[0]
     out = x * w[-1]
     for i in range(1, K):
         shifted = F.pad(x, (0, 0, i, 0))[:, :-i, :]
         out = out + shifted * w[K - 1 - i]
-    return F.silu((out + b).to(F32)).to(x.dtype)
+    return F.silu((out + b).to(acc)).to(x.dtype)
 
 
 def _segsum(dA):
@@ -71,16 +71,17 @@ def ssd_chunked(x, dt, A, B, C, D, chunk: int = 256,
 
     Returns y (b,s,h,p) and the final state (b,h,p,n).
     """
+    acc = wide(x.dtype)
     b, s, h, p = x.shape
     n = B.shape[-1]
     chunk = min(chunk, s)
     if s % chunk:
         raise ValueError(f"sequence {s} is not a multiple of chunk {chunk}")
     c = s // chunk
-    xf = x.to(F32).reshape(b, c, chunk, h, p)
-    dtf = dt.to(F32).reshape(b, c, chunk, h)
-    Bf = B.to(F32).reshape(b, c, chunk, n)
-    Cf = C.to(F32).reshape(b, c, chunk, n)
+    xf = x.to(acc).reshape(b, c, chunk, h, p)
+    dtf = dt.to(acc).reshape(b, c, chunk, h)
+    Bf = B.to(acc).reshape(b, c, chunk, n)
+    Cf = C.to(acc).reshape(b, c, chunk, n)
     dA = dtf * A  # (b,c,l,h)
 
     # intra-chunk (quadratic within chunk)
@@ -99,7 +100,7 @@ def ssd_chunked(x, dt, A, B, C, D, chunk: int = 256,
     # inter-chunk recurrence (the reference's lax.scan), emitting the
     # state before each chunk
     carry = (init_state if init_state is not None
-             else torch.zeros((b, h, p, n), dtype=F32, device=x.device))
+             else torch.zeros((b, h, p, n), dtype=acc, device=x.device))
     prev = []
     for i in range(c):
         prev.append(carry)
@@ -118,11 +119,12 @@ def ssd_chunked(x, dt, A, B, C, D, chunk: int = 256,
 def ssd_step(x, dt, A, B, C, D, state):
     """Single-token recurrence. x (b,h,p); dt (b,h); B,C (b,n);
     state (b,h,p,n)."""
-    xf, dtf = x.to(F32), dt.to(F32)
+    acc = wide(x.dtype)
+    xf, dtf = x.to(acc), dt.to(acc)
     dA = torch.exp(dtf * A)                                   # (b,h)
     new_state = state * dA[..., None, None] + torch.einsum(
-        "bh,bn,bhp->bhpn", dtf, B.to(F32), xf)
-    y = torch.einsum("bn,bhpn->bhp", C.to(F32), new_state) \
+        "bh,bn,bhp->bhpn", dtf, B.to(acc), xf)
+    y = torch.einsum("bn,bhpn->bhp", C.to(acc), new_state) \
         + D[None, :, None] * xf
     return y.to(x.dtype), new_state
 
@@ -131,6 +133,7 @@ def apply_mamba(p, cfg: ModelConfig, x, *, chunk: int = 256):
     """Full-sequence mamba2 block. x (B,S,D) -> (B,S,D), and the final
     states ``{"ssm": (B,H,P,N), "conv": the last K-1 pre-conv inputs}``,
     so a prefill can seed decoding."""
+    acc = wide(x.dtype)
     B_, S, D = x.shape
     DI, H, Pd, N = cfg.di, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
     zxbcdt = torch.einsum("bsd,de->bse", x, p["in_proj"])
@@ -139,11 +142,11 @@ def apply_mamba(p, cfg: ModelConfig, x, *, chunk: int = 256):
     xbc_raw = torch.cat([xs, Bc, Cc], dim=-1)
     xbc = _causal_conv(xbc_raw, p["conv_w"], p["conv_b"])
     xs, Bc, Cc = torch.split(xbc, [DI, N, N], dim=-1)
-    dtv = F.softplus(dt.to(F32) + p["dt_bias"])               # (B,S,H)
+    dtv = F.softplus(dt.to(acc) + p["dt_bias"])               # (B,S,H)
     A = -torch.exp(p["A_log"])                                # (H,)
     y, state = ssd_chunked(xs.reshape(B_, S, H, Pd), dtv, A, Bc, Cc,
                            p["D"], chunk=chunk)
-    y = y.reshape(B_, S, DI) * F.silu(z.to(F32)).to(x.dtype)
+    y = y.reshape(B_, S, DI) * F.silu(z.to(acc)).to(x.dtype)
     out = torch.einsum("bse,ed->bsd", y, p["out_proj"])
     K = cfg.conv_dim
     conv_tail = xbc_raw[:, -(K - 1):, :]
@@ -154,21 +157,22 @@ def apply_mamba(p, cfg: ModelConfig, x, *, chunk: int = 256):
 def apply_mamba_step(p, cfg: ModelConfig, x, conv_state, ssm_state):
     """One-token decode. x (B,1,D); conv_state (B,K-1,conv_ch);
     ssm_state (B,H,P,N). Returns y (B,1,D) and updated states."""
+    acc = wide(x.dtype)
     B_, _, D = x.shape
     DI, H, Pd, N = cfg.di, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
     zxbcdt = torch.einsum("bsd,de->bse", x, p["in_proj"])[:, 0]  # (B, E)
     z, xs, Bc, Cc, dt = _split_proj(cfg, zxbcdt)
     xbc = torch.cat([xs, Bc, Cc], dim=-1)                     # (B, conv_ch)
     window = torch.cat([conv_state, xbc[:, None, :]], dim=1)  # (B,K,ch)
-    conv_out = torch.einsum("bkc,kc->bc", window.to(F32),
-                            p["conv_w"].to(F32)) + p["conv_b"].to(F32)
+    conv_out = torch.einsum("bkc,kc->bc", window.to(acc),
+                            p["conv_w"].to(acc)) + p["conv_b"].to(acc)
     xbc = F.silu(conv_out).to(x.dtype)
     xs, Bc, Cc = torch.split(xbc, [DI, N, N], dim=-1)
-    dtv = F.softplus(dt.to(F32) + p["dt_bias"])               # (B,H)
+    dtv = F.softplus(dt.to(acc) + p["dt_bias"])               # (B,H)
     A = -torch.exp(p["A_log"])
     y, new_ssm = ssd_step(xs.reshape(B_, H, Pd), dtv, A, Bc, Cc, p["D"],
                           ssm_state)
-    y = y.reshape(B_, DI) * F.silu(z.to(F32)).to(x.dtype)
+    y = y.reshape(B_, DI) * F.silu(z.to(acc)).to(x.dtype)
     out = torch.einsum("be,ed->bd", y, p["out_proj"])[:, None, :]
     return out, window[:, 1:, :], new_ssm
 

@@ -24,6 +24,8 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core.engine import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class Spec:
@@ -85,6 +87,15 @@ def torch_dtype(dtype) -> torch.dtype:
     return _DTYPES[str(dtype)]
 
 
+def wide(dtype) -> torch.dtype:
+    """The dtype the layers compute norms, rotary angles, attention
+    logits and softmax, the SSM scan and the logits in: float32, as the
+    reference does for its bfloat16 and float32 models, and float64 for a
+    float64 model (a precision reference for the float32 runs)."""
+    return (torch.float64 if torch_dtype(dtype) == torch.float64
+            else torch.float32)
+
+
 def init_params(specs, generator: torch.Generator,
                 default_dtype="bfloat16", device=None):
     """Concrete parameters for a spec tree, drawn from ``generator``.
@@ -114,12 +125,15 @@ def init_params(specs, generator: torch.Generator,
     return tree_map(make, specs, is_spec)
 
 
-def params_from_numpy(tree, dtype=None, device="cpu"):
+def params_from_numpy(tree, dtype=None, device="cuda"):
     """The reference's parameters (a tree of numpy arrays, e.g.
     ``jax.tree.map(np.asarray, init_params(...))``) as the port's: the same
-    tree of torch tensors on ``device``, each in its own dtype (bfloat16
+    tree of torch tensors on ``device`` (the card unless ``device="cpu"``
+    is asked for; raises without CUDA), each in its own dtype (bfloat16
     arrays, which numpy holds as ``ml_dtypes.bfloat16``, arrive as
     ``torch.bfloat16``), or all cast to ``dtype`` when given."""
+    device = resolve_device(device)
+
     def conv(a):
         if a.dtype.name == "bfloat16":
             t = torch.from_numpy(np.array(a.view(np.uint16),

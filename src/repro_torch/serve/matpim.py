@@ -45,9 +45,13 @@ faults).
 ``devices=D > 1`` dispatches up to D independent ready buckets at once, one
 per device slot, on a pool of D threads; slot ``s`` runs on
 ``cuda:(s % device_count)`` on a stream of its own (on a CPU service, the
-CPU). Per-ticket results equal the serial loop's. ``FaultModel`` buckets
-stay serial, because they share one sampling stream. On one card every
-slot shares it; placement on distinct cards is written but unverified.
+CPU; the stream is :func:`~repro_torch.distributed.mesh_exec.slot_stream`'s).
+Per-ticket results equal the serial loop's. ``FaultModel`` buckets stay
+serial, because they share one sampling stream, and each draws under a
+lock of its own. On one card every slot shares it; placement on distinct
+cards is written but unverified. With ``devices=1`` a ``flush`` or
+``step`` holds the service lock throughout, so concurrent callers run one
+after the other.
 
 :meth:`PlanService.tiled` is the pipeline-facing fetch (exact shapes, no
 bucketing), and :func:`get_default_service` the process-wide service the
@@ -83,6 +87,7 @@ from ..core.kernel_exec import kernels_eligible
 from ..core.tiling import (TiledBinaryMatvec, TiledConv2d, TiledMatvec,
                            majority_sign)
 from ..device.faults import FaultModel, FaultRealization
+from ..distributed.mesh_exec import slot_stream
 from ..obs import metrics as _metrics
 from ..obs.trace import span as _span
 from .compile_pool import CompilePool
@@ -300,11 +305,13 @@ class PlanService:
         # buckets execute concurrently, one per device slot
         self.devices = max(1, int(devices)) if devices else 1
         self._exec_pool = None          # lazy ThreadPoolExecutor (devices>1)
-        self._streams: Dict[int, torch.cuda.Stream] = {}
         # workers never take this lock (job closures touch only the wrapper
         # and the store), so holding it while waiting on a job cannot
         # deadlock
         self._lock = threading.RLock()
+        # FaultModel buckets draw from the one sampling stream ``_rng``;
+        # this lock keeps each bucket's draws contiguous at any ``devices``
+        self._draw_lock = threading.Lock()
 
     def close(self) -> None:
         """Shut down the compile pool and the device-slot threads; in-flight
@@ -759,19 +766,19 @@ class PlanService:
         if self.devices <= 1 or self.device.type != "cuda":
             return self.device, contextlib.nullcontext()
         dev = torch.device("cuda", slot % torch.cuda.device_count())
-        with self._lock:
-            stream = self._streams.get(slot)
-            if stream is None:
-                stream = self._streams[slot] = torch.cuda.Stream(device=dev)
-        return dev, torch.cuda.stream(stream)
+        return dev, slot_stream(dev, slot)[1]
 
     def _run_bucket(self, pends: List[_Pending], slot: int = 0
                     ) -> List[Ticket]:
         """Coalesce one bucket onto the engine batch axis and scatter back.
 
         Thread-safe: load and execute run without the service lock (the
-        part :meth:`_run_buckets` overlaps across device slots); the
-        warm-up claim and the decode/scatter bookkeeping take it.
+        part :meth:`_run_buckets` overlaps across device slots; with one
+        slot the caller, :meth:`flush` or :meth:`step`, holds it
+        throughout); the warm-up claim and the decode/scatter bookkeeping
+        take it. A ``FaultModel`` bucket executes under ``_draw_lock``, so
+        its draws from the sampling stream are never interleaved with
+        another bucket's.
         """
         w = pends[0].wrapper
         plan = w.plan
@@ -799,7 +806,8 @@ class PlanService:
                     w._served_once = True
                 dev, ctx = self._device_ctx(slot)
                 t0 = time.perf_counter()
-                with ctx:
+                with ctx, (self._draw_lock if rng is not None
+                           else contextlib.nullcontext()):
                     res = self._execute_bucket(plan, mems, faults, rng, dev)
                 wall = time.perf_counter() - t0
                 _metrics.histogram("serve.device.busy_us").observe(
@@ -885,6 +893,12 @@ class PlanService:
             done.extend(self._run_bucket(ps))
         return done
 
+    @staticmethod
+    def _claimable(ps: List[_Pending]) -> bool:
+        """A bucket grouped earlier that no other thread has claimed or
+        served since (caller holds the lock)."""
+        return not any(p.running or p.ticket.done for p in ps)
+
     def _claim(self, ready: List[List[_Pending]]) -> None:
         """Mark the selected buckets in-flight (caller holds the lock), so
         a concurrent flush or step never runs them twice."""
@@ -907,19 +921,27 @@ class PlanService:
                 buckets = list(self._buckets(ready_only=False).values())
         return buckets
 
+    def _serial(self):
+        """The whole-call lock of one device slot: with ``devices <= 1`` a
+        flush or step holds the service lock throughout, so concurrent
+        callers run one after the other, as a single-device service
+        always has; with more slots only claims and bookkeeping lock."""
+        return (self._lock if self.devices <= 1
+                else contextlib.nullcontext())
+
     def flush(self) -> List[Ticket]:
         """Run every pending request, one engine batch per bucket; with
         ``devices > 1`` up to that many independent ready buckets execute
         at once per iteration. Buckets parked behind an async compile run
         once their plan lands."""
         done = []
-        with _span("serve.flush", pending_units=self.pending_units,
-                   devices=self.devices):
+        with self._serial(), _span("serve.flush",
+                                   pending_units=self.pending_units,
+                                   devices=self.devices):
             while self._queue:
                 buckets = self._next_buckets()
                 with self._lock:
-                    ready = [ps for ps in buckets
-                             if not any(p.running for p in ps)]
+                    ready = [ps for ps in buckets if self._claimable(ps)]
                     ready = ready[:self.devices]
                     if ready:
                         self._step += 1
@@ -945,13 +967,20 @@ class PlanService:
         an async compile are not ready; when every pending bucket is, the
         step waits for a plan to land rather than return empty-handed.
         """
+        with self._serial():
+            return self._step_once(max_units)
+
+    def _step_once(self, max_units: Optional[int]) -> List[Ticket]:
         if not self._queue:
             return []
         _metrics.gauge("serve.queue_depth_units").set(self.pending_units)
         buckets = self._next_buckets()
-        if not buckets:
-            return []
         with self._lock:
+            # a concurrent flush or step may have claimed or served some
+            # since they were grouped
+            buckets = [ps for ps in buckets if self._claimable(ps)]
+            if not buckets:
+                return []
             self._step += 1
 
             def age(ps):

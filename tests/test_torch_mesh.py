@@ -422,6 +422,117 @@ def test_fault_model_buckets_stay_serial():
         np.testing.assert_array_equal(a, b)
 
 
+def _fault_stream(rng, n=12):
+    return [(rng.choice([-1, 1], size=(int(rng.integers(4, 40)), k)),
+             rng.choice([-1, 1], size=k), i % 2 == 1)
+            for i, k in enumerate(rng.integers(8, 200, size=n))]
+
+
+def _two_threads(target):
+    import sys
+    import threading
+    errors = []
+
+    def run(mode):
+        try:
+            target(mode)
+        except Exception as e:    # surfaced below, with the thread's error
+            errors.append(e)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=run, args=(m,))
+                   for m in ("a", "b")]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+    assert not errors, errors
+
+
+@pytest.mark.parametrize("call", ["flush", "step"])
+def test_concurrent_callers_keep_seeded_fault_bits_on_one_slot(call):
+    """Two threads serve one seeded ``devices=1`` service at once, both
+    flushing or both stepping: one slot serialises whole calls, so every
+    ticket carries the bits of the same calls made from one thread,
+    FaultModel draws included."""
+    fm = FaultModel(p_sa0=0.01, p_switch=0.01)
+    reqs = _fault_stream(np.random.default_rng(12))
+
+    def serve(threads):
+        svc = PlanService(device="cpu", devices=1, seed=4, **GEOM)
+        try:
+            ts = [svc.submit_binary_matvec(A, x, faults=fm if f else None)
+                  for A, x, f in reqs]
+
+            def drain(_):
+                if call == "flush":
+                    svc.flush()
+                while call == "step" and svc.pending_units:
+                    svc.step()
+
+            if threads:
+                _two_threads(drain)
+            else:
+                drain(None)
+            assert all(t.done for t in ts)
+            return [t.result for t in ts]
+        finally:
+            svc.close()
+
+    for a, b in zip(serve(False), serve(True)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_concurrent_flush_and_step_serve_each_request_once():
+    """One thread flushes and one steps a ``devices=2`` service at once:
+    ``step`` drops buckets a flush claimed since it grouped them, so no
+    bucket runs twice, and the ideal requests equal their oracle."""
+    fm = FaultModel(p_sa0=0.01, p_switch=0.01)
+    reqs = _fault_stream(np.random.default_rng(13), n=16)
+    svc = PlanService(device="cpu", devices=2, seed=4, **GEOM)
+    try:
+        ts = [svc.submit_binary_matvec(A, x, faults=fm if f else None)
+              for A, x, f in reqs]
+
+        def drain(mode):
+            if mode == "a":
+                svc.flush()
+            while mode == "b" and svc.pending_units:
+                svc.step()
+
+        _two_threads(drain)
+        assert all(t.done for t in ts) and not svc.pending_units
+        # one engine batch per exec key: no bucket ran twice
+        assert svc.stats.batches == len({(t.key, f)
+                                         for t, (_, _, f) in zip(ts, reqs)})
+        for t, (A, x, f) in zip(ts, reqs):
+            if not f:
+                np.testing.assert_array_equal(t.result,
+                                              np.where(A @ x >= 0, 1, -1))
+    finally:
+        svc.close()
+    # the window, made deterministic: buckets grouped before another
+    # caller's flush served them are dropped by the step, not rerun
+    svc = PlanService(device="cpu", devices=2, **GEOM)
+    try:
+        (A, x, _), (A2, x2, _) = reqs[:2]
+        svc.submit_binary_matvec(A, x)
+        stale = svc._next_buckets()
+        svc.flush()
+        later = svc.submit_binary_matvec(A2, x2)
+        svc._next_buckets = lambda: stale
+        assert svc.step() == [] and svc.stats.batches == 1
+        del svc._next_buckets
+        assert svc.step() == [later] and later.done
+    finally:
+        svc.close()
+
+
 @pytest.mark.parametrize("module", [
     "repro_torch.distributed.sharding", "repro_torch.distributed.mesh_exec",
     "repro_torch.models.spec"])

@@ -66,7 +66,7 @@ def _case(arch, dtype="float32"):
         ref_params = ref_init_params(ref_model.specs(),
                                      jax.random.PRNGKey(0), dtype)
         model = build_model(cfg)
-        params = params_from_numpy(_np_tree(ref_params))
+        params = params_from_numpy(_np_tree(ref_params), device="cpu")
         rng = np.random.default_rng(FAMILIES.index(arch))
         seq = 288 if cfg.family == "vlm" else S
         batch = {"tokens": rng.integers(0, cfg.vocab, (B, seq))}
@@ -139,9 +139,30 @@ def test_params_from_numpy_keeps_the_reference_tree():
         assert tuple(a.shape) == b.shape
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     bf = params_from_numpy({"w": np.asarray(jnp.arange(4.0,
-                                                       dtype=jnp.bfloat16))})
+                                                       dtype=jnp.bfloat16))},
+                           device="cpu")
     assert bf["w"].dtype == torch.bfloat16
     assert bf["w"].float().tolist() == [0.0, 1.0, 2.0, 3.0]
+
+
+def test_entry_points_default_to_the_card():
+    """``params_from_numpy`` and ``init_cache`` put their tensors on the
+    card unless the CPU is asked for, and raise without CUDA rather than
+    fall back to the CPU."""
+    model = build_model(dataclasses.replace(
+        get_config("olmo-1b").reduced(), dtype="float32"))
+    tree = {"w": np.ones(3, np.float32)}
+    if torch.cuda.is_available():
+        assert params_from_numpy(tree)["w"].device.type == "cuda"
+        assert tree_leaves(model.init_cache(1, 4))[0].device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            params_from_numpy(tree)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            model.init_cache(1, 4)
+    assert params_from_numpy(tree, device="cpu")["w"].device.type == "cpu"
+    assert tree_leaves(model.init_cache(1, 4, device="cpu"))[0] \
+        .device.type == "cpu"
 
 
 @pytest.mark.parametrize("arch", FAMILIES)
@@ -165,7 +186,7 @@ def test_decode_matches_reference(arch):
     cfg, model, params, ref_model, ref_params, batch = _case(arch)
     toks = batch["tokens"][:, :STEPS]
     ref_cache = ref_model.init_cache(B, STEPS, jnp.float32)
-    cache = model.init_cache(B, STEPS, torch.float32)
+    cache = model.init_cache(B, STEPS, torch.float32, device="cpu")
     with torch.no_grad():
         if cfg.family == "encdec":
             rb = _ref_batch(batch, "float32")
@@ -225,7 +246,7 @@ def test_decode_consistency_with_forward():
         0, cfg.vocab, (B, STEPS))).long()
     with torch.no_grad():
         full, _ = model.forward(params, {"tokens": toks})
-        cache = model.init_cache(B, STEPS, torch.float32)
+        cache = model.init_cache(B, STEPS, torch.float32, device="cpu")
         for t in range(STEPS):
             lg, cache = model.decode_step(params, cache, toks[:, t:t + 1],
                                           torch.full((B,), t))

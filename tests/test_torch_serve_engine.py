@@ -37,7 +37,8 @@ def _setup(arch, seed):
                                  "float32")
     cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
     model = build_model(cfg)
-    params = params_from_numpy(jax.tree.map(np.asarray, ref_params))
+    params = params_from_numpy(jax.tree.map(np.asarray, ref_params),
+                               device="cpu")
     return cfg, model, params, ref_model, ref_params
 
 
