@@ -137,6 +137,26 @@ each printing one JSON line per record:
              first 4 decode steps equal the forward within 1e-9 of it. A matpim-bnn forward (4 × 64 tokens) at
              full width. Record ``lm``. The model path launches none of the
              five kernels: the reference's runs no Pallas kernel.
+9. train   — the model stack's training half on ``cuda``. Record ``train``:
+             olmo-1b at full width in bf16 through ``launch.train.train``
+             (the CLI's path; weights from a seeded ``torch.Generator``),
+             SyntheticLM batch 8 × 256, 6 steps under each of remat
+             "full" with float32 moments, "none", and "dots" with int8
+             moments and two microbatches: step ms split into gradients and
+             update (CUDA events; medians over steps 1-5), tokens/s, the
+             peak memory of each part, the optimizer state's bytes, and the
+             bound from ``launch/analytic.py`` at 989 TFLOP/s bf16 and 3.35
+             TB/s; every loss finite, every leaf moved, "full"'s gradient
+             peak below "none"'s, first-step losses within 2^-7 of each
+             other. Record ``train_f32``: one float32 step (B 2, S 64) on
+             the card and on the CPU against the same step in float64 on the
+             card, within ``TRAIN_F32_TOL`` of each gradient leaf's scale,
+             and a TF32 control that must miss it. Record ``train_bnn``:
+             matpim-bnn at full width, 10 steps on the reference test's
+             batch (loss must fall), then ``run_resilient_loop`` with a
+             checkpoint every 3 steps and a failure injected at step 4,
+             bit-equal to a clean run under deterministic algorithms, and
+             the checkpoint's save and restore walls.
 
 Then the per-kernel summary line ``{"kernels": [...]}`` (``launches`` from
 the serve phase for binary_matmul, splitk_matvec and conv2d_shift, from the
@@ -150,7 +170,9 @@ Without CUDA it exits 2.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1609,6 +1631,304 @@ def phase_lm(torch, card: str) -> None:
               "dtype": cfg.dtype})
 
 
+# H100 SXM dense bf16 tensor-core rate (NVIDIA's data sheet): the train
+# record's bound divides the analytic flops of launch/analytic.py by it,
+# and its bytes by HBM_BYTES_PER_S
+BF16_FLOPS_PER_S = 989e12
+# olmo-1b at full width in bf16: the TrainConfig default (remat "full",
+# float32 moments), no remat, and "dots" with int8 moments and two
+# microbatches; SyntheticLM batch 8 × seq 256, 6 steps each
+TRAIN_RUNS = ({"remat": "full", "opt_dtype": "float32", "microbatches": 1},
+              {"remat": "none", "opt_dtype": "float32", "microbatches": 1},
+              {"remat": "dots", "opt_dtype": "int8", "microbatches": 2})
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 256, 6
+# the three runs' first-step losses: one forward of the same weights on the
+# same batch; "dots" with two microbatches runs half-batch bf16 products,
+# whose rounding moves the mean loss: held to 2^-7 relative, two bf16 ulps
+TRAIN_LOSS_TOL = 2 ** -7
+# one float32 olmo-1b step against float64 at full width, as a share of
+# each gradient leaf's largest float64 magnitude (of the loss and the
+# gradient norm for those two). Seeded weights put the logits' spread in
+# the hundreds (loss ~184), where the softmax is steep: sound float32 reads
+# up to 9.31e-3 on the card and 9.35e-3 on the CPU (wk's gradient), TF32
+# matmuls 0.50-1.08 (PERF.md §6, record train_f32). The limit sits 3.2x
+# over the sound readings and 17x under the control's smallest leaf.
+TRAIN_F32_TOL = 3e-2
+BNN_STEPS, BNN_RESUME_STEPS = 10, 8
+
+
+def train_run(torch, run: dict) -> dict:
+    """olmo-1b trained ``TRAIN_STEPS`` steps at full width in bf16
+    through ``launch.train.train`` (the CLI's path), no checkpoints:
+    losses, step ms split into gradients and update (CUDA events), peak
+    memory of each part, the optimizer state's bytes and the analytic
+    bound. The parameters must have moved from their seeded draw, every
+    leaf."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import analytic
+    from repro_torch.launch.train import train
+    from repro_torch.models import build_model
+    from repro_torch.models.spec import init_params, tree_leaves
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    rep = train("olmo-1b", steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                seq=TRAIN_SEQ, ckpt_dir=None, device="cuda", **run)
+    cfg, tc, losses = rep["cfg"], rep["tc"], rep["losses"]
+    what = f"olmo-1b train {run}"
+    check((cfg.n_layers, cfg.d_model, cfg.vocab, cfg.dtype) ==
+          (16, 2048, 50304, "bfloat16"), f"{what}: config {cfg}")
+    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses))
+          and all(np.isfinite(rep["grad_norms"])), f"{what}: {losses}")
+    init = init_params(build_model(cfg).specs(),
+                       torch.Generator(device="cuda").manual_seed(0),
+                       cfg.dtype)
+    moved = [float((a.float() != b.float()).float().mean())
+             for a, b in zip(tree_leaves(init), tree_leaves(rep["params"]))]
+    del init
+    check(all(m > 0 for m in moved), f"{what}: leaves unmoved {moved}")
+    shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    flops = analytic.cell_flops(cfg, shape, tc)
+    nbytes = analytic.cell_bytes(cfg, shape, tc, rep["n_params"])
+    bound = analytic.roofline_ms(flops, nbytes, BF16_FLOPS_PER_S,
+                                 HBM_BYTES_PER_S)
+    warm = slice(1, None)           # step 0 pays cuBLAS and allocator set-up
+    step_ms = np.median(rep["step_ms"][warm])
+    out = {**run, "n_params": rep["n_params"], "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "losses": losses,
+           "grad_norms": rep["grad_norms"],
+           "step_ms": rep["step_ms"], "grads_ms": rep["grads_ms"],
+           "update_ms": rep["update_ms"],
+           "step_ms_median_warm": step_ms,
+           "grads_ms_median_warm": np.median(rep["grads_ms"][warm]),
+           "update_ms_median_warm": np.median(rep["update_ms"][warm]),
+           "update_share": np.median(rep["update_ms"][warm]) / step_ms,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+           "peak_memory_bytes": rep["peak_memory_bytes"],
+           "grads_peak_bytes": max(rep["grads_peak_bytes"]),
+           "update_peak_bytes": max(rep["update_peak_bytes"]),
+           "allocated_before_bytes": before,
+           "opt_state_bytes": rep["opt_state_bytes"],
+           "leaf_share_moved": moved, "flops": flops, "bytes": nbytes,
+           **bound, "bound_over_step": bound["bound_ms"] / step_ms,
+           "rates": {"bf16_flops_per_s": BF16_FLOPS_PER_S,
+                     "hbm_bytes_per_s": HBM_BYTES_PER_S,
+                     "source": "H100 SXM data sheet, dense"}}
+    del rep
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_f32_check(torch) -> dict:
+    """One olmo-1b step's loss and gradients at full width in float32 on
+    the card (B 2, S 64, remat "full") against the same step of the model
+    built in float64 on the same weights widened (every layer computes in
+    float64, ``models.spec.wide``): the loss and gradient norm relative to
+    float64's, each gradient leaf's largest error relative to that leaf's
+    largest float64 magnitude. Sound float32 must stay within
+    ``TRAIN_F32_TOL``; the same step with TF32 matmuls, the control, must
+    miss it. The same float32 step on the host's CPU is read beside them
+    (``cpu_f32``). Float64 parameters and gradients are 9.4 GB each."""
+    import dataclasses
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data import SyntheticLM, make_global_batch
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.precision import tf32
+    from repro_torch.models import build_model
+    from repro_torch.models.spec import init_params, tree_leaves, tree_map
+    from repro_torch.train import grad_norm, make_grad_fn
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    cfg = dataclasses.replace(get_config("olmo-1b"), dtype="float32")
+    tc = TrainConfig()
+    params = init_params(build_model(cfg).specs(),
+                         torch.Generator(device="cuda").manual_seed(1),
+                         "float32")
+    batch = make_global_batch(SyntheticLM(cfg, batch=2, seq=64, seed=1)
+                              .at_step(0), make_local_mesh("cuda"),
+                              "float32")
+    model64 = build_model(dataclasses.replace(cfg, dtype="float64"))
+    loss64, g64 = make_grad_fn(model64, tc)(
+        tree_map(lambda t: t.double(), params), batch)
+    gn64 = float(grad_norm(g64))
+    loss64 = float(loss64)
+    g64 = tree_leaves(g64)
+    scales = [float(g.abs().max()) for g in g64]
+
+    def shares(tf: bool, device="cuda") -> dict:
+        with tf32(tf):
+            loss, g = make_grad_fn(build_model(cfg), tc)(
+                tree_map(lambda t: t.to(device), params),
+                {k: v.to(device) for k, v in batch.items()})
+            gn = float(grad_norm(g))
+        leaves = [float((a.to("cuda").double() - b).abs().max()) / s
+                  for a, b, s in zip(tree_leaves(g), g64, scales)]
+        return {"loss": abs(float(loss) - loss64) / abs(loss64),
+                "grad_norm": abs(gn - gn64) / gn64, "leaves": leaves,
+                "max": max([abs(float(loss) - loss64) / abs(loss64),
+                            abs(gn - gn64) / gn64] + leaves)}
+
+    sound = shares(False)
+    control = shares(True)
+    peak = torch.cuda.max_memory_allocated()
+    cpu = shares(False, "cpu")      # the same float32 step on the host
+    del params, g64
+    torch.cuda.empty_cache()
+    for what, r in (("card", sound), ("CPU", cpu)):
+        check(r["max"] <= TRAIN_F32_TOL, f"olmo-1b f32 train step on the "
+              f"{what} off float64 by {r['max']} of scale, over "
+              f"{TRAIN_F32_TOL}")
+    check(control["max"] > TRAIN_F32_TOL, f"olmo-1b: the TF32 control is "
+          f"off float64 by only {control['max']} of scale, within "
+          f"{TRAIN_F32_TOL}: the limit would not reject it")
+    return {"arch": "olmo-1b", "dtype": "float32", "batch": [2, 64],
+            "remat": tc.remat, "loss_f64": loss64, "grad_norm_f64": gn64,
+            "leaf_scales_f64": scales, "sound": sound,
+            "tf32_control": control, "cpu_f32": cpu,
+            "limit_share": TRAIN_F32_TOL, "allocated_before_bytes": before,
+            "peak_memory_bytes": peak}
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """``torch.use_deterministic_algorithms(True)`` for the block, with the
+    cuBLAS workspace setting it asks for (read when a product launches),
+    both restored after. The CUDA embedding backward otherwise adds with
+    atomics in an order that changes from run to run."""
+    saved = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if saved is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved
+
+
+def train_bnn(torch) -> dict:
+    """matpim-bnn at full width (4 × 512, vocab 32768, the binary FFN's
+    straight-through signs) in its bf16: ``BNN_STEPS`` steps at lr 1e-3 on
+    one batch, the loss must end below where it began
+    (``tests/test_models_smoke.py::test_binary_ffn_model`` at full width;
+    deterministic algorithms, so the card's run repeats). Then ``run_resilient_loop`` over SyntheticLM
+    batches with a checkpoint every 3 steps, once clean and once with a
+    failure injected at step 4: the second restores step 3 and must end at
+    the first's parameters and optimizer state bit for bit (both under
+    deterministic algorithms). The save and restore walls of the final
+    state."""
+    import tempfile
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data import SyntheticLM, make_global_batch
+    from repro_torch.distributed.fault_tolerance import run_resilient_loop
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.spec import init_params, tree_leaves
+    from repro_torch.train import make_train_step
+    cfg = get_config("matpim-bnn")
+    check(cfg.binary_ffn and (cfg.n_layers, cfg.d_model, cfg.vocab) ==
+          (4, 512, 32768), f"matpim-bnn config {cfg}")
+    model = build_model(cfg)
+    mesh = make_local_mesh("cuda")
+    step_fn, opt = make_train_step(model, TrainConfig(lr=1e-3))
+    params = init_params(model.specs(),
+                         torch.Generator(device="cuda").manual_seed(2),
+                         cfg.dtype)
+    state = (params, opt.init(params))
+    # the reference test's batch: B 2 × S 32 tokens and targets drawn
+    # uniformly over the vocabulary (numpy seed 0)
+    rng = np.random.default_rng(0)
+    one = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 32))).cuda()
+           for k in ("tokens", "targets")}
+    p, s = state
+    losses = []
+    with deterministic(torch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(BNN_STEPS):
+            p, s, m = step_fn(p, s, one)
+            losses.append(m["loss"])
+        losses = [float(x) for x in losses]
+        fit_s = time.perf_counter() - t0
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"matpim-bnn loss did not fall: {losses}")
+    del p, s
+    src = SyntheticLM(cfg, batch=8, seq=128, seed=2)
+
+    class Counting(Checkpointer):
+        def __init__(self, directory):
+            super().__init__(directory)
+            self.restored = []
+
+        def restore(self, like, step=None):
+            self.restored.append(step)
+            return super().restore(like, step)
+
+    def batch_at(i):
+        return make_global_batch(src.at_step(i), mesh, cfg.dtype)
+
+    with deterministic(torch), tempfile.TemporaryDirectory() as tmp:
+        def run(name, fail_at):
+            ck = Counting(os.path.join(tmp, name))
+            ck.save(0, state, block=True)
+            return run_resilient_loop(step_fn, state, batch_at, ck,
+                                      n_steps=BNN_RESUME_STEPS, ckpt_every=3,
+                                      fail_at=fail_at), ck
+        clean, _ = run("clean", None)
+        faulty, ck = run("faulty", {4: RuntimeError("injected at step 4")})
+        check(ck.restored == [3], f"matpim-bnn restores {ck.restored}")
+        differ = [i for i, (a, b) in enumerate(zip(tree_leaves(clean),
+                                                   tree_leaves(faulty)))
+                  if not torch.equal(a, b)]
+        check(not differ, f"matpim-bnn resumed run differs from the clean "
+              f"one at leaves {differ}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save(99, faulty, block=True)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored, _ = ck.restore(faulty, 99)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(restored), tree_leaves(faulty))),
+            "matpim-bnn checkpoint round trip")
+        d = os.path.join(ck.dir, "step_99")
+        disk = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+    return {"arch": "matpim-bnn", "dtype": cfg.dtype, "n_layers": cfg.n_layers,
+            "d_model": cfg.d_model, "vocab": cfg.vocab, "fit_batch": [2, 32],
+            "losses": losses, "fit_wall_s": fit_s, "resume_batch": [8, 128],
+            "resume": {"steps": BNN_RESUME_STEPS, "ckpt_every": 3,
+                       "fail_at": 4, "restored_step": 3,
+                       "compare": "bit for bit, deterministic algorithms"},
+            "ckpt_save_s": save_s, "ckpt_restore_s": restore_s,
+            "ckpt_disk_bytes": disk,
+            "ckpt_leaves": len(tree_leaves(faulty))}
+
+
+def phase_train(torch, card: str) -> None:
+    """The model stack's training half on the card: olmo-1b at full width
+    in bf16 under three configurations (record ``train``), one float32
+    step against float64 with a TF32 control (``train_f32``), and
+    matpim-bnn's training, resume after an injected failure and
+    checkpoint walls (``train_bnn``). Any failed check raises."""
+    runs = [train_run(torch, run) for run in TRAIN_RUNS]
+    full, none, dots = runs
+    check(full["grads_peak_bytes"] < none["grads_peak_bytes"],
+          f"remat full's forward+backward peak {full['grads_peak_bytes']} "
+          f"is not below none's {none['grads_peak_bytes']}")
+    first = none["losses"][0]
+    for r in runs:
+        check(abs(r["losses"][0] - first) <= TRAIN_LOSS_TOL * abs(first),
+              f"first-step losses {[x['losses'][0] for x in runs]}")
+    emit("train", card=card, runs=runs, loss_tol=TRAIN_LOSS_TOL)
+    emit("train_f32", card=card, **train_f32_check(torch))
+    emit("train_bnn", card=card, **train_bnn(torch))
+
+
 SOURCES = {
     "binary_matmul": ("src/repro_torch/csrc/binary_matmul.cu",
                       "src/repro/kernels/binary_matmul.py:63"),
@@ -1645,6 +1965,7 @@ def main() -> int:
     phase_apps(torch)
     phase_faults(torch)
     phase_lm(torch, name_limit)
+    phase_train(torch, name_limit)
     summary = {"kernels": []}
     for name in COUNTED:
         main_row = rows[name][0]

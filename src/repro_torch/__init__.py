@@ -2,8 +2,11 @@
 
 The port runs the simulator — plans, compiled traces, torch executors,
 tiling, multi-device tile dispatch (``distributed/``), the serving layer,
-device models and apps — and the model stack's serving path (``models/``,
-``serve/engine.py``, ``launch/``) on a torch device, with the TPU's Pallas
+device models and apps — and the model stack (``models/``), its serving
+path (``serve/engine.py``, ``launch/serve.py``) and its training half
+(``optim/``, ``train/``, ``data/``, ``checkpoint/``,
+``distributed/fault_tolerance.py``, ``launch/train.py``) on a torch
+device, with the TPU's Pallas
 kernels rewritten by hand in CUDA for Hopper (``kernels/``, ``csrc/``). Host-side program generation and compilation stay
 numpy, byte-identical to the reference's. Module paths mirror ``repro``'s;
 the one exception is ``core/kernel_exec.py``, the counterpart of

@@ -1,0 +1,4 @@
+"""Checkpointing (the port of ``src/repro/checkpoint``)."""
+from .checkpointer import Checkpointer
+
+__all__ = ["Checkpointer"]

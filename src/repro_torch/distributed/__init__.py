@@ -1,5 +1,6 @@
-"""Distribution: logical-axis sharding rules, meshes of torch devices and
-sharded tile execution (the port of ``src/repro/distributed``)."""
+"""Distribution: logical-axis sharding rules, meshes of torch devices,
+sharded tile execution and the training loop's fault tolerance (the port
+of ``src/repro/distributed``)."""
 from .sharding import (RULES, constrain, current_mesh, named_sharding,
                        resolve_spec, tree_shardings, use_mesh)
 

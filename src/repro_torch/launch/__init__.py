@@ -1,3 +1,4 @@
-"""Launchers: device meshes and the serving CLI (the port of
-``src/repro/launch``; training, the dry-run and the analytic roofline are
-not ported yet), and ``precision``, the port's own float32-drift report."""
+"""Launchers: device meshes, the serving and training CLIs and the
+analytic roofline (the port of ``src/repro/launch``; the dry-run and the
+HLO analysis are not ported), and ``precision``, the port's own
+float32-drift report."""

@@ -22,10 +22,13 @@ call. Inputs:
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ModelConfig
 from ..core.engine import resolve_device
@@ -35,9 +38,25 @@ from .spec import Spec, stack_specs, torch_dtype, tree_map, wide
 
 N_PATCHES = 256  # vlm stub: image patches prepended to the text sequence
 
-# activation checkpointing policies the reference takes; they matter only
-# to a backward pass (training), so the serving path runs each as "none"
+# activation checkpointing policies, the reference's: "full" recomputes a
+# layer group's forward in the backward pass, "dots" keeps the products
+# without a batch dimension and recomputes the rest, "none" keeps all
 REMAT = ("none", "full", "dots")
+
+_MM = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: save
+    the output of a matrix product with no batch dimension, recompute
+    everything else. ``torch.einsum`` lowers a product with no batch
+    dimension (``"bsd,dhk->bshk"``) to ``aten.bmm`` with a batch of one, so
+    that counts as one; ``aten.bmm`` over a real batch (the attention
+    scores and their weighted sum) is recomputed."""
+    if op in _MM or (op is torch.ops.aten.bmm.default
+                     and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def _lcm(a, b):
@@ -47,6 +66,19 @@ def _lcm(a, b):
 def _group(tree, g: int):
     """Group ``g`` of a tree stacked over groups."""
     return tree_map(lambda a: a[g], tree)
+
+
+def _unstack(tree, n: int) -> list:
+    """The ``n`` groups of a tree stacked over groups, each leaf unbound
+    once: one backward node per leaf stacks the groups' gradients, where
+    a slice per group would add ``n`` full-size gradients."""
+    if isinstance(tree, torch.Tensor):
+        return list(tree.unbind(0))
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][g] for k in tree} for g in range(n)]
+    parts = [_unstack(t, n) for t in tree]
+    return [type(tree)(p[g] for p in parts) for g in range(n)]
 
 
 def _stack(trees: list):
@@ -62,10 +94,17 @@ def _stack(trees: list):
 
 
 class Model(torch.nn.Module):
-    """One architecture family's stack. ``remat`` takes the reference's
-    values (``"none" | "full" | "dots"``); activation checkpointing only
-    changes a backward pass, which the serving path does not run, so every
-    value runs as ``"none"`` until the training slice."""
+    """One architecture family's stack. ``remat`` (``"none" | "full" |
+    "dots"``) is the reference's activation checkpointing of each layer
+    group's body (and the encoder's), applied where gradients are on:
+    ``"full"`` wraps the body in ``torch.utils.checkpoint.checkpoint``
+    (``use_reentrant=False``), ``"dots"`` adds :func:`_dots_policy` as a
+    selective-checkpoint policy. Under either the checkpointed body
+    returns only the hidden state, so the forward returns no cache (a
+    body that returned each group's K/V would keep them alive until the
+    backward pass). Under ``no_grad`` (serving: ``decode_step``,
+    ``Engine``) every value runs as ``"none"``; the values computed are
+    the same under all three."""
 
     def __init__(self, cfg: ModelConfig, remat: str = "none"):
         super().__init__()
@@ -196,32 +235,56 @@ class Model(torch.nn.Module):
             x = x + y
         return x, new_cache
 
+    def _checkpoints(self) -> bool:
+        """Whether group bodies run checkpointed: a remat policy is set
+        and gradients are on."""
+        return self.remat != "none" and torch.is_grad_enabled()
+
+    def _checkpoint(self, body, x):
+        """``body(x)``, a group's hidden state to the next, checkpointed
+        under the model's policy."""
+        kw = {}
+        if self.remat == "dots":
+            kw["context_fn"] = functools.partial(
+                create_selective_checkpoint_contexts, _dots_policy)
+        return checkpoint(body, x, use_reentrant=False, **kw)
+
     def _groups(self, params, x, pos, positions3, cache=None,
                 cross_kv=None):
         """The reference's scan over layer groups, as a loop: returns the
-        hidden state and the per-group caches stacked over groups."""
+        hidden state and the per-group caches stacked over groups (no
+        cache when the groups run checkpointed, :meth:`_checkpoints`)."""
         decode = cache is not None
-        per_group = []
-        for g in range(self.n_groups):
-            lp = _group(params["layers"], g)
-            lc = _group(cache, g) if decode else None
-            ckv = (tuple(t[g] for t in cross_kv) if cross_kv is not None
-                   else None)
-            cross = (_group(params["cross"], g) if cross_kv is not None
-                     else None)
+        n = self.n_groups
+        layers = _unstack(params["layers"], n)
+        caches = _unstack(cache, n) if decode else [None] * n
+        ckvs = _unstack(cross_kv, n) if cross_kv is not None else [None] * n
+        cross = (_unstack(params["cross"], n) if cross_kv is not None
+                 else [None] * n)
+
+        def body(g, x):
             new_caches = {}
             for i, kind in enumerate(self.kinds):
-                p = dict(lp[f"sub{i}"])
-                use_cross = ckv is not None and i == 0
+                p = dict(layers[g][f"sub{i}"])
+                use_cross = ckvs[g] is not None and i == 0
                 if use_cross:
-                    p["cross_norm"] = cross["norm"]
-                    p["cross_attn"] = cross["attn"]
+                    p["cross_norm"] = cross[g]["norm"]
+                    p["cross_attn"] = cross[g]["attn"]
                 x, c = self._apply_sublayer(
                     p, kind, x, pos, positions3, decode=decode,
-                    cache=lc[f"sub{i}"] if decode else None,
-                    cross_kv=ckv if use_cross else None)
+                    cache=caches[g][f"sub{i}"] if decode else None,
+                    cross_kv=ckvs[g] if use_cross else None)
                 new_caches[f"sub{i}"] = c
-            per_group.append(new_caches)
+            return x, new_caches
+
+        if not decode and self._checkpoints():
+            for g in range(n):
+                x = self._checkpoint(lambda h, g=g: body(g, h)[0], x)
+            return x, None
+        per_group = []
+        for g in range(n):
+            x, c = body(g, x)
+            per_group.append(c)
         return x, _stack(per_group)
 
     # -- encoder (whisper) ----------------------------------------------------
@@ -232,13 +295,14 @@ class Model(torch.nn.Module):
         pos = self._positions(B, S, frames.device)
         # sinusoidal positions on top of the (stub) conv frontend output
         x = frames + _sinusoid(S, D, frames.dtype, frames.device)[None]
-        for g in range(cfg.enc_layers):
-            p = _group(params["encoder"], g)["sub0"]
-            y = L.apply_norm(p["norm1"], cfg, x)
-            y, _ = L.attention(p["attn"], cfg, y, pos, causal=False)
-            x = x + y
-            y = L.apply_norm(p["norm2"], cfg, x)
-            x = x + L.apply_mlp(p["mlp"], cfg, y)
+        for lp in _unstack(params["encoder"], cfg.enc_layers):
+            def body(h, p=lp["sub0"]):
+                y = L.apply_norm(p["norm1"], cfg, h)
+                y, _ = L.attention(p["attn"], cfg, y, pos, causal=False)
+                h = h + y
+                y = L.apply_norm(p["norm2"], cfg, h)
+                return h + L.apply_mlp(p["mlp"], cfg, y)
+            x = self._checkpoint(body, x) if self._checkpoints() else body(x)
         return L.apply_norm(params["enc_final_norm"], cfg, x)
 
     def encoder_kv(self, params, enc_out):
@@ -252,7 +316,9 @@ class Model(torch.nn.Module):
     # -- forward (train / prefill) --------------------------------------------
 
     def forward(self, params, batch) -> Tuple[torch.Tensor, Any]:
-        """Returns (logits, cache). Cache leaves are stacked over groups."""
+        """Returns (logits, cache). Cache leaves are stacked over groups;
+        the cache is ``None`` where the groups run checkpointed (a remat
+        policy with gradients on)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape

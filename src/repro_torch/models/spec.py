@@ -12,8 +12,10 @@ reproduce ``jax.random``; :func:`params_from_numpy` carries the
 reference's own parameters (its ``init_params`` tree as numpy arrays)
 across, which is how every comparison with the reference runs.
 
-Trees are nested dicts (and tuples) whose leaves are specs or tensors;
-leaves are visited in the reference's pytree order (dict keys sorted).
+Trees are nested dicts, lists, tuples and ``NamedTuple``s whose leaves
+are specs or tensors; leaves are visited in the reference's pytree order
+(``jax.tree.flatten``'s: dict keys sorted, ``NamedTuple`` fields in
+declaration order).
 """
 from __future__ import annotations
 
@@ -50,9 +52,10 @@ def _is_tensor(x) -> bool:
 
 
 def tree_map(fn: Callable, tree, is_leaf: Callable = _is_tensor):
-    """Apply ``fn`` to every leaf of a tree of dicts, lists and tuples,
-    keeping its structure; ``is_leaf`` says what a leaf is (tensors and
-    numpy arrays by default). Leaves are visited dict keys sorted.
+    """Apply ``fn`` to every leaf of a tree of dicts, lists, tuples and
+    ``NamedTuple``s, keeping its structure; ``is_leaf`` says what a leaf
+    is (tensors and numpy arrays by default). Leaves are visited dict keys
+    sorted, ``NamedTuple`` fields in declaration order.
 
     >>> t = {"b": torch.zeros(2), "a": (torch.zeros(1, 3),)}
     >>> tree_map(lambda a: tuple(a.shape), t)
@@ -63,6 +66,8 @@ def tree_map(fn: Callable, tree, is_leaf: Callable = _is_tensor):
     if isinstance(tree, dict):
         out = {k: tree_map(fn, tree[k], is_leaf) for k in sorted(tree)}
         return {k: out[k] for k in tree}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, t, is_leaf) for t in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, t, is_leaf) for t in tree)
     return fn(tree)
@@ -73,6 +78,17 @@ def tree_leaves(tree, is_leaf: Callable = _is_tensor) -> list:
     out = []
     tree_map(out.append, tree, is_leaf)
     return out
+
+
+def tree_unflatten(like, leaves, is_leaf: Callable = _is_tensor):
+    """A tree of ``like``'s structure holding ``leaves``, taken in
+    :func:`tree_leaves`' order."""
+    leaves = list(leaves)
+    n = len(tree_leaves(like, is_leaf))
+    if n != len(leaves):
+        raise ValueError(f"{len(leaves)} leaves for a tree of {n}")
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like, is_leaf)
 
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -178,4 +194,5 @@ def param_bytes(params) -> int:
 
 __all__ = ["Spec", "abstract_params", "axes_tree", "init_params",
            "is_spec", "param_bytes", "param_count", "params_from_numpy",
-           "stack_specs", "torch_dtype", "tree_leaves", "tree_map"]
+           "stack_specs", "torch_dtype", "tree_leaves", "tree_map",
+           "tree_unflatten"]
