@@ -90,6 +90,16 @@ each printing one JSON line per record:
              zeroed just before the first service and read after its warm
              flush, must rise. One record: each flush's wall, compiles, span
              totals and labels, the services' stats.
+   tune    — ``tools/autotune_torch.py``: ``service_work`` captures the
+             buckets of one flush of the serve phase's twelve requests,
+             ``sweep`` times every candidate on each and writes a fresh
+             tunings file; then one cold ``PlanService(backend="auto")``
+             flush on that file with a fresh plan store. It must tune no
+             bucket inline (the ``serve.inline_tunes`` counter does not
+             move) and every ticket equals its oracle. Record ``tune``: the
+             sweep's wall and entries, the cold flush's wall, span totals
+             and labels, beside the cold ``auto`` walls this card measured
+             earlier with inline tuning (33.76 and 44.05 s, PERF.md §5).
 5. ops     — ``kernels.ops`` on CUDA tensors: ``matvec``, ``conv2d``,
              ``conv2d(tiled=True)``, ``conv2d_binary`` and ``binary_dense``
              each equal their plain versions exactly, and raise their
@@ -157,6 +167,30 @@ each printing one JSON line per record:
              checkpoint every 3 steps and a failure injected at step 4,
              bit-equal to a clean run under deterministic algorithms, and
              the checkpoint's save and restore walls.
+
+10. oracle — the CUDA ``binary_matmul`` against the port's crossbar
+             engine replayed on the card (``kernels.ref.
+             crossbar_binary_matmul_ref(..., backend="torch")``), bit for
+             bit: at the main path's shape (20 instances of a 1024×416 ±1
+             tile against one vector, Kw 13) and at one spanning several
+             tiles (2500×3000 against 3 vectors: 3 × 8 tiles each). Record
+             ``oracle``: shapes, tiles, walls of both sides.
+11. dryrun — ``launch.dryrun.run_cell`` for every (arch × shape) cell of
+             the ten assigned configs at full width on ``meta`` (in worker
+             processes; the card's memory allocated does not move while one
+             cell runs in this process), each ``ok``: fits against the
+             card's ``total_memory``, peak, counted and analytic flops,
+             dominant term (record ``dryrun``). Then the real step on the
+             card for up to two cells the dry run says fit, at their full
+             production shape (mamba2-370m ``decode_32k``, then
+             whisper-tiny ``decode_32k`` if its predicted peak fits in the
+             free memory with 2 GB to spare, else mamba2-370m
+             ``long_500k``): ``torch.cuda.max_memory_allocated`` over the
+             first step against the predicted peak, and
+             ``FlopCounterMode``'s count on the real tensors, which must
+             equal the count on ``meta``; the first and a warm step's ms
+             from CUDA events (record ``dryrun_real``); the logits must be
+             finite.
 
 Then the per-kernel summary line ``{"kernels": [...]}`` (``launches`` from
 the serve phase for binary_matmul, splitk_matvec and conv2d_shift, from the
@@ -1053,6 +1087,10 @@ def phase_serve() -> tuple:
     return launches, serial
 
 
+# cold auto flushes of the serve_auto_store phase measured earlier on the
+# H100 (s), each bucket tuned inline (PERF.md section 5)
+INLINE_TUNED_COLD_S = (33.76, 44.05)
+
 # the span totals the serve_auto_store record reports for each flush
 STORE_SPANS = ("serve.plan_build", "serve.load", "engine.execute",
                "serve.prewarm", "autotune.tune")
@@ -1146,6 +1184,211 @@ def phase_serve_auto_store() -> None:
     finally:
         plan_mod.compile_program = real
     emit("serve_auto_store", launches=launches, stats=stats, rounds=rounds)
+
+
+def _sweep_tool():
+    """``tools/autotune_torch.py`` as a module (``tools/`` is no package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "autotune_torch", ROOT / "tools" / "autotune_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_tune(card: str) -> None:
+    """The offline sweep over exactly the buckets the serve phase submits,
+    then a cold ``auto`` flush on its table that tunes nothing inline."""
+    import tempfile
+
+    from repro_torch.core.autotune import TuningTable
+    from repro_torch.obs import metrics
+    from repro_torch.serve import PlanService
+    tool = _sweep_tool()
+    reqs = serve_requests(np.random.default_rng(2))
+    t0 = time.perf_counter()
+    work = tool.service_work([(kind, args) for kind, args, *_ in
+                              reqs.values()], device="cuda")
+    capture_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="matpim_tune_") as tmp:
+        path = Path(tmp) / "tunings.json"
+        t0 = time.perf_counter()
+        tuned = tool.sweep(work, TuningTable(path), device="cuda", log=None)
+        sweep_s = time.perf_counter() - t0
+        inline = metrics.counter("serve.inline_tunes")
+        before = inline.value
+        svc = PlanService(backend="auto", store=Path(tmp) / "plans",
+                          tunings=TuningTable(path), device="cuda")
+        tickets, wall, spans = serve_round(svc, reqs)
+        svc.close()
+        inline_tunes = inline.value - before
+    check(inline_tunes == 0, f"the cold auto flush tuned {inline_tunes} "
+          f"buckets inline on a swept table")
+    for name, (kind, *_) in reqs.items():
+        label = tickets[name].backend
+        check(label.startswith("auto:") and not (
+            (name == "mv 256x256 N16" or kind == "binary_conv")
+            and label.startswith("auto:kernels")),
+            f"tune: {name} labelled {label}")
+    emit("tune", card=card, buckets=len(work), capture_wall_s=capture_s,
+         sweep_wall_s=sweep_s,
+         entries=[{"bucket": name, "batch": B, "backend": e.backend,
+                   "max_batch": e.max_batch, "us": e.us}
+                  for name, B, e in tuned],
+         cold_auto={"wall_s": wall, "inline_tunes": inline_tunes,
+                    "spans_ms": {k: spans.get(k, 0.0) for k in STORE_SPANS},
+                    "labels": {r: t.backend for r, t in tickets.items()}},
+         inline_tuned_cold_wall_s=INLINE_TUNED_COLD_S)
+
+
+def phase_oracle(torch) -> None:
+    """The CUDA ``binary_matmul`` equals the port's crossbar engine on the
+    card (``backend="torch"`` replay), bit for bit, at the main path's
+    shape and at one that spans several tiles."""
+    from repro_torch.core.tiling import TiledBinaryMatvec
+    from repro_torch.kernels.binary_matmul import binary_matmul
+    from repro_torch.kernels.ref import crossbar_binary_matmul_ref, pack_bits
+    rng = np.random.default_rng(40)
+    out = []
+    for batch, M, K, N in ((20, 1024, 416, 1), (1, 2500, 3000, 3)):
+        a = rng.choice([-1, 1], size=(batch, M, K))
+        b = rng.choice([-1, 1], size=(batch, N, K))
+        pad = -K % 32
+
+        def words(x):
+            x = np.pad(x, ((0, 0), (0, 0), (0, pad)))
+            return pack_bits(torch.from_numpy(x)).cuda()
+        aw, bw = words(a), words(b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = binary_matmul(aw if batch > 1 else aw[0],
+                            bw if batch > 1 else bw[0])
+        got = got.reshape(batch, M, N).cpu().numpy().astype(np.int64)
+        kernel_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = np.stack([crossbar_binary_matmul_ref(a[i], b[i],
+                                                    device="cuda")
+                         for i in range(batch)])
+        engine_s = time.perf_counter() - t0
+        check(np.array_equal(got, want + pad),
+              f"binary_matmul != the crossbar engine at {batch}x{M}x{K}")
+        check(np.array_equal(want, np.einsum("imk,ink->imn", a, b)),
+              f"the crossbar engine != the ±1 product at {batch}x{M}x{K}")
+        tiled = TiledBinaryMatvec(M, K)
+        out.append({"batch": batch, "M": M, "K": K, "N": N, "Kw": -(-K // 32),
+                    "tiles": tiled.gm * tiled.gk, "engine_runs":
+                    batch * N * tiled.gm * tiled.gk, "kernel_wall_s":
+                    kernel_s, "engine_wall_s": engine_s, "equal": True})
+    emit("oracle", engine_backend="torch", cases=out)
+
+
+# (arch, shape) cells whose real step the dryrun phase runs on the card,
+# in order of preference; the second is taken only if it fits the memory
+# then free with DRYRUN_SPARE_BYTES to spare, else the fallback
+DRYRUN_REAL = (("mamba2-370m", "decode_32k"),
+               ("whisper-tiny", "decode_32k"))
+DRYRUN_FALLBACK = ("mamba2-370m", "long_500k")
+DRYRUN_SPARE_BYTES = 2e9
+
+
+def dryrun_real(torch, D, res: dict) -> dict:
+    """The cell's real step on the card at its full production shape:
+    measured peak and flop count against the dry run's."""
+    from torch.utils.flop_counter import FlopCounterMode
+    arch, shape = res["arch"], res["shape"]
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    step, args = D.build_step(D.get_config(arch), D.SHAPES[shape],
+                              D.default_train_config(), "cuda")
+    torch.cuda.synchronize()
+    args_bytes = torch.cuda.memory_allocated() - held
+    torch.cuda.reset_peak_memory_stats()
+    count = FlopCounterMode(display=False)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    with count:
+        out = step(*args)
+    end.record()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    logits = out[0] if isinstance(out, tuple) else out
+    check(bool(torch.isfinite(logits.float()).all()),
+          f"{arch} {shape}: non-finite logits on the card")
+    flops = float(count.get_total_flops())
+    check(flops == res["raw_cost_analysis"]["flops"],
+          f"{arch} {shape}: {flops} flops counted on the card, "
+          f"{res['raw_cost_analysis']['flops']} on meta")
+    first_ms = start.elapsed_time(end)
+    del out, logits
+    start.record()
+    step(*args)
+    end.record()
+    torch.cuda.synchronize()
+    mem = res["memory"]
+    rec = {"arch": arch, "shape": shape, "first_step_ms": first_ms,
+           "warm_step_ms": start.elapsed_time(end),
+           "args_bytes": {"predicted": mem["args_bytes"],
+                          "measured": args_bytes},
+           "peak_bytes": {"predicted": mem["peak_bytes"], "measured": peak,
+                          "ratio": peak / mem["peak_bytes"]},
+           "flops": {"meta": res["raw_cost_analysis"]["flops"],
+                     "card": flops},
+           "analytic_flops": res["flops_per_device"]}
+    del step, args
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_dryrun(torch, card: str) -> None:
+    """Every cell's dry run on ``meta`` at full width, then the real step
+    of up to two cells that fit, against the dry run's prediction."""
+    import functools
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from repro_torch.launch import dryrun as D
+    capacity = torch.cuda.get_device_properties(0).total_memory
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    here = D.run_cell(*DRYRUN_REAL[0], capacity_bytes=capacity)
+    check(torch.cuda.memory_allocated() == before,
+          "the dry run allocated memory on the card")
+    cells = [c for c in D.all_cells() if c != DRYRUN_REAL[0]]
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(
+            max_workers=min(8, os.cpu_count() or 1),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        results = [here] + list(pool.map(
+            functools.partial(D.run_cell, capacity_bytes=capacity),
+            *zip(*cells)))
+    wall = time.perf_counter() - t0
+    by_cell = {(r["arch"], r["shape"]): r for r in results}
+    check(len(by_cell) == len(D.all_cells())
+          and all(r["ok"] for r in results), "a dry-run cell failed")
+    emit("dryrun", card=card, capacity_bytes=capacity, wall_s=wall,
+         cells=[{"arch": r["arch"], "shape": r["shape"],
+                 "fits": r["memory"]["fits"],
+                 "peak_bytes": r["memory"]["peak_bytes"],
+                 "args_bytes": r["memory"]["args_bytes"],
+                 "flops_counted": r["raw_cost_analysis"]["flops"],
+                 "flops_analytic": r["flops_per_device"],
+                 "bytes_counted": r["raw_cost_analysis"]["bytes"],
+                 "bytes_analytic": r["bytes_per_device"],
+                 "dominant": r["dominant"], "cell_wall_s": r["wall_s"]}
+                for r in results])
+    first = by_cell[DRYRUN_REAL[0]]
+    check(first["memory"]["fits"], f"{DRYRUN_REAL[0]} does not fit")
+    runs = [dryrun_real(torch, D, first)]
+    second = by_cell[DRYRUN_REAL[1]]
+    free, _ = torch.cuda.mem_get_info()
+    if not (second["memory"]["fits"] and second["memory"]["peak_bytes"]
+            + DRYRUN_SPARE_BYTES <= free):
+        second = by_cell[DRYRUN_FALLBACK]
+    runs.append(dryrun_real(torch, D, second))
+    emit("dryrun_real", card=card, free_bytes_before_second=free,
+         spare_bytes=DRYRUN_SPARE_BYTES, runs=runs)
 
 
 def phase_ops(torch) -> dict:
@@ -1960,12 +2203,15 @@ def main() -> int:
     launches, serial = phase_serve()
     phase_mesh(kinds, serial, name_limit)
     phase_serve_auto_store()
+    phase_tune(name_limit)
     launches.update({n: v for n, v in phase_ops(torch).items()
                      if n in ("conv2d_shift_tiled", "binary_conv2d")})
     phase_apps(torch)
     phase_faults(torch)
     phase_lm(torch, name_limit)
     phase_train(torch, name_limit)
+    phase_oracle(torch)
+    phase_dryrun(torch, name_limit)
     summary = {"kernels": []}
     for name in COUNTED:
         main_row = rows[name][0]

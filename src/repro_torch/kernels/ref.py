@@ -1,9 +1,11 @@
 """Plain PyTorch oracles for the port's kernels (the port of
-``src/repro/kernels/ref.py``; the crossbar-engine oracles stay with the
-reference's tests). Words are int32 holding the reference's uint32 bits.
+``src/repro/kernels/ref.py``), and the crossbar-engine oracles that take
+the simulated stateful-logic hardware itself as the ±1 kernel's ground
+truth. Words are int32 holding the reference's uint32 bits.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .binary_matmul import popcount32
@@ -62,6 +64,40 @@ def conv2d_shift_ref(a: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
             out = out + a[v:H - kh + 1 + v, h:W - kw + 1 + h].to(
                 torch.float32) * k[v, h].to(torch.float32)
     return out
+
+
+def crossbar_binary_matvec_ref(a, x, device="cuda",
+                               backend: str = "torch") -> np.ndarray:
+    """±1 matvec dot values from the compiled MatPIM crossbar engine.
+
+    The (tiled, batched) stateful-logic program computes per-row XNOR
+    popcounts on ``device`` with the engine's ``backend``, and
+    ⟨a, x⟩ = 2·popcount − K. Accepts any (M, K); rows and columns beyond
+    one 1024×1024 array are handled by the tiling layer. Returns int64.
+    """
+    from ..core.tiling import TiledBinaryMatvec
+
+    a = np.asarray(a, dtype=np.int64)
+    x = np.asarray(x, dtype=np.int64)
+    M, K = a.shape
+    pop = TiledBinaryMatvec(M, K).popcounts(a, x, backend=backend,
+                                            device=device)
+    return 2 * pop - K
+
+
+def crossbar_binary_matmul_ref(a, b, device="cuda",
+                               backend: str = "torch") -> np.ndarray:
+    """±1 GEMM dot values via the compiled crossbar engine: every (row of
+    ``b``, crossbar tile) pair runs in one bit-plane-packed engine batch.
+    ``a`` is (M, K), ``b`` (N, K); returns (M, N) int64 dots."""
+    from ..core.tiling import TiledBinaryMatvec
+
+    a = np.asarray(a, dtype=np.int64)
+    b = np.asarray(b, dtype=np.int64)
+    M, K = a.shape
+    pops = TiledBinaryMatvec(M, K).popcounts_many(a, b, backend=backend,
+                                                  device=device)
+    return (2 * pops - K).T
 
 
 def binary_conv2d_ref(a: torch.Tensor, k: torch.Tensor) -> torch.Tensor:

@@ -45,6 +45,30 @@ def _split_proj(cfg: ModelConfig, zxbcdt):
     return torch.split(zxbcdt, [DI, DI, G * N, G * N, H], dim=-1)
 
 
+_PROJ_BLOCKS = 4   # partial products of a float32 projection, added pairwise
+
+
+def _proj(spec: str, x, w):
+    """``torch.einsum(spec, x, w)`` contracting ``x``'s last axis with
+    ``w``'s first. In float32 the contraction runs as ``_PROJ_BLOCKS``
+    partial products added pairwise. Torch's CPU BLAS sums a 64-wide contraction
+    in one float32 chain, about 1.7x further from float64 than XLA's CPU
+    dot (rms 1.4e-7 against 8.3e-8 on unit normals); the SSD stack grows
+    the projections' rounding into the gradients, which sat 2.2x further
+    from float64 than the reference's before the blocks and 0.9x after
+    (``tests/test_torch_train.py``). Other dtypes take one product:
+    bfloat16 partial sums would round each block."""
+    k = w.shape[0]
+    if x.dtype != torch.float32 or k % _PROJ_BLOCKS:
+        return torch.einsum(spec, x, w)
+    step = k // _PROJ_BLOCKS
+    parts = [torch.einsum(spec, x[..., i:i + step], w[i:i + step])
+             for i in range(0, k, step)]
+    while len(parts) > 1:
+        parts = [parts[i] + parts[i + 1] for i in range(0, len(parts), 2)]
+    return parts[0]
+
+
 def _causal_conv(x, w, b):
     """Depthwise causal conv via static shifts. x (B,S,C), w (K,C)."""
     acc = wide(x.dtype)
@@ -136,7 +160,7 @@ def apply_mamba(p, cfg: ModelConfig, x, *, chunk: int = 256):
     acc = wide(x.dtype)
     B_, S, D = x.shape
     DI, H, Pd, N = cfg.di, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
-    zxbcdt = torch.einsum("bsd,de->bse", x, p["in_proj"])
+    zxbcdt = _proj("bsd,de->bse", x, p["in_proj"])
     zxbcdt = constrain(zxbcdt, ("batch", None, "d_inner"))
     z, xs, Bc, Cc, dt = _split_proj(cfg, zxbcdt)
     xbc_raw = torch.cat([xs, Bc, Cc], dim=-1)
@@ -147,7 +171,7 @@ def apply_mamba(p, cfg: ModelConfig, x, *, chunk: int = 256):
     y, state = ssd_chunked(xs.reshape(B_, S, H, Pd), dtv, A, Bc, Cc,
                            p["D"], chunk=chunk)
     y = y.reshape(B_, S, DI) * F.silu(z.to(acc)).to(x.dtype)
-    out = torch.einsum("bse,ed->bsd", y, p["out_proj"])
+    out = _proj("bse,ed->bsd", y, p["out_proj"])
     K = cfg.conv_dim
     conv_tail = xbc_raw[:, -(K - 1):, :]
     return constrain(out, ("batch", None, None)), {"ssm": state,
@@ -160,7 +184,7 @@ def apply_mamba_step(p, cfg: ModelConfig, x, conv_state, ssm_state):
     acc = wide(x.dtype)
     B_, _, D = x.shape
     DI, H, Pd, N = cfg.di, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
-    zxbcdt = torch.einsum("bsd,de->bse", x, p["in_proj"])[:, 0]  # (B, E)
+    zxbcdt = _proj("bsd,de->bse", x, p["in_proj"])[:, 0]       # (B, E)
     z, xs, Bc, Cc, dt = _split_proj(cfg, zxbcdt)
     xbc = torch.cat([xs, Bc, Cc], dim=-1)                     # (B, conv_ch)
     window = torch.cat([conv_state, xbc[:, None, :]], dim=1)  # (B,K,ch)
@@ -173,7 +197,7 @@ def apply_mamba_step(p, cfg: ModelConfig, x, conv_state, ssm_state):
     y, new_ssm = ssd_step(xs.reshape(B_, H, Pd), dtv, A, Bc, Cc, p["D"],
                           ssm_state)
     y = y.reshape(B_, DI) * F.silu(z.to(acc)).to(x.dtype)
-    out = torch.einsum("be,ed->bd", y, p["out_proj"])[:, None, :]
+    out = _proj("be,ed->bd", y, p["out_proj"])[:, None, :]
     return out, window[:, 1:, :], new_ssm
 
 

@@ -119,3 +119,52 @@ def test_cuda_kernel_matches_plain(cuda, M, N, K):
     assert binary_matmul.launches == before + 2
     np.testing.assert_array_equal(
         got.cpu().numpy(), binary_matmul_plain(ga.cpu(), gb.cpu()).numpy())
+
+
+def test_crossbar_binary_matvec_oracle():
+    """The port's crossbar-engine matvec oracle equals the dense ±1 dot
+    product and the reference's oracle on the same seed, exactly."""
+    ref_k = pytest.importorskip("repro.kernels.ref")
+    rng = np.random.default_rng(11)
+    M, K = 24, 64
+    a = rng.choice([-1, 1], size=(M, K))
+    x = rng.choice([-1, 1], size=K)
+    got = ref.crossbar_binary_matvec_ref(a, x, device="cpu")
+    np.testing.assert_array_equal(got, a @ x)
+    np.testing.assert_array_equal(got, ref_k.crossbar_binary_matvec_ref(a, x))
+
+
+@pytest.mark.parametrize("M,N,K", [(16, 4, 64), (1100, 2, 700)])
+def test_binary_matmul_vs_crossbar_engine(M, N, K):
+    """The port's ``binary_matmul`` (its plain version on the CPU) agrees
+    with the port's compiled crossbar simulator, and that with the
+    reference's; the second shape spans two row tiles and two K tiles."""
+    ref_k = pytest.importorskip("repro.kernels.ref")
+    rng = np.random.default_rng(5)
+    a = rng.choice([-1, 1], size=(M, K)).astype(np.float32)
+    b = rng.choice([-1, 1], size=(N, K)).astype(np.float32)
+    pad = ((0, 0), (0, -K % 32))
+    got = binary_matmul(ref.pack_bits(torch.from_numpy(np.pad(a, pad))),
+                        ref.pack_bits(torch.from_numpy(np.pad(b, pad))))
+    want = ref.crossbar_binary_matmul_ref(a, b, device="cpu")
+    # zero padding packs to bit 0 (−1) on both sides: K % 32 extra matches
+    np.testing.assert_array_equal(got.numpy(), want + (-K % 32))
+    np.testing.assert_array_equal(want, a.astype(np.int64) @ b.T)
+    if M * K <= 1024:   # the reference's engine is slow past one tile
+        np.testing.assert_array_equal(
+            want, ref_k.crossbar_binary_matmul_ref(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,N,K", [(1024, 20, 416), (1100, 3, 700)])
+def test_cuda_kernel_matches_crossbar_engine(cuda, M, N, K):
+    """The CUDA kernel equals the crossbar engine replayed on the card
+    (``backend="torch"``), bit for bit."""
+    rng = np.random.default_rng(M + N)
+    a = rng.choice([-1, 1], size=(M, K)).astype(np.float32)
+    b = rng.choice([-1, 1], size=(N, K)).astype(np.float32)
+    pad = ((0, 0), (0, -K % 32))
+    got = binary_matmul(ref.pack_bits(torch.from_numpy(np.pad(a, pad))).to(cuda),
+                        ref.pack_bits(torch.from_numpy(np.pad(b, pad))).to(cuda))
+    want = ref.crossbar_binary_matmul_ref(a, b, device=cuda)
+    np.testing.assert_array_equal(got.cpu().numpy(), want + (-K % 32))
