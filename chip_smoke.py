@@ -192,6 +192,27 @@ each printing one JSON line per record:
              from CUDA events (record ``dryrun_real``); the logits must be
              finite.
 
+12. dist  — sharded steps. A one-rank NCCL process group on the card (a
+             ``FileStore`` in a temporary directory) with a 1×1
+             ``("data", "model")`` mesh (``launch.mesh.make_mesh``): olmo-1b
+             at full width in bf16 served (8 requests × 16 new tokens
+             through ``launch.serve.serve``) and trained (3 steps, remat
+             "full", float32 moments, batch 8 × 256, through
+             ``launch.train.train``) with DTensor parameters, cache,
+             moments and batches, each beside the same run on plain tensors
+             (``make_local_mesh``): greedy tokens equal, losses within
+             2^-7 relative and every updated parameter within
+             ``TRAIN_F32_TOL`` of its scale (max abs difference and
+             bit-equality reported); decode-step and train-step ms (CUDA
+             events) of both and their ratio (DTensor's host overhead);
+             peak memory; the collectives ``CollectiveMeter`` saw. Meanwhile
+             five spawned workers run the sharded dry run
+             (``run_cell(mesh="16x16")``, rank 0 of a fake process group of
+             256 or 512 ranks on ``meta``): olmo-1b and mamba2-370m
+             ``train_4k`` and ``decode_32k`` at 16×16, olmo-1b ``train_4k``
+             at 2×16×16; per-device peak, ``fits``, collective bytes by
+             kind and the dominant term (record ``dist``).
+
 Then the per-kernel summary line ``{"kernels": [...]}`` (``launches`` from
 the serve phase for binary_matmul, splitk_matvec and conv2d_shift, from the
 ops phase for conv2d_shift_tiled and binary_conv2d; the other numbers from
@@ -2152,6 +2173,165 @@ def train_bnn(torch) -> dict:
             "ckpt_leaves": len(tree_leaves(faulty))}
 
 
+# the sharded dry-run cells of the dist phase: (arch, shape, multi_pod)
+DIST_CELLS = (("olmo-1b", "train_4k", False), ("olmo-1b", "decode_32k", False),
+              ("mamba2-370m", "train_4k", False),
+              ("mamba2-370m", "decode_32k", False),
+              ("olmo-1b", "train_4k", True))
+DIST_REQUESTS, DIST_NEW, DIST_STEPS = 8, 16, 3
+
+
+def dist_serve(torch, mesh) -> dict:
+    """olmo-1b served at full width in bf16 on ``mesh``: tokens per uid,
+    decode-step ms (CUDA events; median over the warm steps) and peak
+    memory."""
+    from repro_torch.launch.serve import serve
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rep = serve("olmo-1b", requests=DIST_REQUESTS, max_new=DIST_NEW,
+                device="cuda", mesh=mesh)
+    dec = rep["engine"].timings()["decode_ms"]
+    out = {"results": rep["results"], "wall_s": rep["wall_s"],
+           "decode_ms": dec, "decode_ms_median_warm": float(np.median(
+               dec[1:])), "peak_memory_bytes":
+           torch.cuda.max_memory_allocated()}
+    del rep
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_train(torch, mesh) -> dict:
+    """olmo-1b trained ``DIST_STEPS`` steps at full width in bf16 on
+    ``mesh`` (remat "full", float32 moments, batch 8 × 256): losses,
+    step ms (CUDA events), peak memory and the updated parameters (this
+    rank's shards, on the card)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.train import train
+    from repro_torch.models.spec import tree_leaves
+    torch.cuda.empty_cache()
+    rep = train("olmo-1b", steps=DIST_STEPS, batch=TRAIN_BATCH,
+                seq=TRAIN_SEQ, remat="full", opt_dtype="float32",
+                ckpt_dir=None, device="cuda", mesh=mesh)
+    params = [p.to_local() if isinstance(p, DTensor) else p
+              for p in tree_leaves(rep["params"])]
+    out = {"losses": rep["losses"], "step_ms": rep["step_ms"],
+           "step_ms_median_warm": float(np.median(rep["step_ms"][1:])),
+           "peak_memory_bytes": rep["peak_memory_bytes"], "params": params}
+    del rep
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_dist(torch, card: str) -> None:
+    """Sharded steps on a one-rank NCCL group against plain tensors, and
+    the sharded dry run in spawned workers meanwhile (record ``dist``).
+    Any failed check raises; the group is torn down either way."""
+    import functools
+    import multiprocessing
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.hlo_analysis import (CollectiveMeter,
+                                                 collective_bytes)
+    from repro_torch.launch.mesh import make_local_mesh, make_mesh
+    capacity = torch.cuda.get_device_properties(0).total_memory
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(
+            max_workers=len(DIST_CELLS),
+            mp_context=multiprocessing.get_context("spawn")) as pool, \
+            tempfile.TemporaryDirectory() as tmp:
+        cells = pool.map(functools.partial(D.run_cell, mesh="16x16",
+                                           capacity_bytes=capacity),
+                         *zip(*DIST_CELLS))
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1, device_id=torch.device("cuda", 0))
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+            local = make_local_mesh("cuda")
+            plain_serve = dist_serve(torch, local)
+            serve_meter = CollectiveMeter()
+            with serve_meter:
+                sharded_serve = dist_serve(torch, mesh)
+            plain_train = dist_train(torch, local)
+            train_meter = CollectiveMeter()
+            with train_meter:
+                sharded_train = dist_train(torch, mesh)
+        finally:
+            dist.destroy_process_group()
+        card_s = time.perf_counter() - t0
+        cells = list(cells)
+    wall = time.perf_counter() - t0
+    check(sharded_serve["results"] == plain_serve["results"],
+          "sharded serving's greedy tokens differ from plain tensors'")
+    check(len(sharded_serve["results"]) == DIST_REQUESTS
+          and all(len(v) == DIST_NEW
+                  for v in sharded_serve["results"].values()),
+          f"served {sharded_serve['results']}")
+    pl, sh = plain_train["losses"], sharded_train["losses"]
+    check(len(sh) == DIST_STEPS and all(np.isfinite(sh)) and all(
+        abs(a - b) <= TRAIN_LOSS_TOL * abs(b) for a, b in zip(sh, pl)),
+        f"sharded losses {sh} against plain {pl}")
+    worst, bit_equal = 0.0, True
+    for a, b in zip(sharded_train["params"], plain_train["params"]):
+        check(a.shape == b.shape, f"{a.shape} against {b.shape}")
+        diff = float((a.float() - b.float()).abs().max())
+        scale = max(1.0, float(b.float().abs().max()))
+        check(diff <= TRAIN_F32_TOL * scale,
+              f"an updated parameter moved {diff} at scale {scale}")
+        worst = max(worst, diff)
+        bit_equal = bit_equal and bool(torch.equal(a, b))
+    check(all(r["ok"] for r in cells), "a sharded dry-run cell failed")
+
+    def coll(meter):
+        raw, _, wire = collective_bytes(meter.records)
+        kinds = sorted({k for k, _, _ in meter.records})
+        return {"count": len(meter.records), "kinds": kinds,
+                "operand_bytes": raw, "wire_bytes": wire}
+
+    def times(plain, sharded, key):
+        return {"plain": plain[key], "sharded": sharded[key],
+                "ratio": sharded[key] / plain[key]}
+    emit("dist", card=card, process_group="nccl, 1 rank",
+         mesh={"data": 1, "model": 1}, arch="olmo-1b", dtype="bfloat16",
+         serve={"requests": DIST_REQUESTS, "max_new": DIST_NEW,
+                "tokens_equal": True,
+                "decode_ms_median_warm": times(plain_serve, sharded_serve,
+                                               "decode_ms_median_warm"),
+                "decode_ms": {"plain": plain_serve["decode_ms"],
+                              "sharded": sharded_serve["decode_ms"]},
+                "peak_memory_bytes": times(plain_serve, sharded_serve,
+                                           "peak_memory_bytes"),
+                "collectives": coll(serve_meter)},
+         train={"steps": DIST_STEPS, "batch": TRAIN_BATCH,
+                "seq": TRAIN_SEQ, "remat": "full", "opt_dtype": "float32",
+                "losses": {"plain": pl, "sharded": sh},
+                "loss_tol": TRAIN_LOSS_TOL, "param_tol": TRAIN_F32_TOL,
+                "param_max_abs_diff": worst, "params_bit_equal": bit_equal,
+                "step_ms_median_warm": times(plain_train, sharded_train,
+                                             "step_ms_median_warm"),
+                "step_ms": {"plain": plain_train["step_ms"],
+                            "sharded": sharded_train["step_ms"]},
+                "peak_memory_bytes": times(plain_train, sharded_train,
+                                           "peak_memory_bytes"),
+                "collectives": coll(train_meter)},
+         dryrun=[{"arch": r["arch"], "shape": r["shape"],
+                  "mesh": r["mesh"], "chips": r["chips"],
+                  "peak_bytes": r["memory"]["peak_bytes"],
+                  "args_bytes": r["memory"]["args_bytes"],
+                  "fits": r["memory"]["fits"],
+                  "collective_bytes": r["collective_bytes"],
+                  "collective_wire_bytes": r["collective_wire_bytes"],
+                  "collective_s": r["roofline"]["collective_s"],
+                  "dominant": r["dominant"], "cell_wall_s": r["wall_s"]}
+                 for r in cells],
+         card_work_s=card_s, wall_s=wall)
+
+
 def phase_train(torch, card: str) -> None:
     """The model stack's training half on the card: olmo-1b at full width
     in bf16 under three configurations (record ``train``), one float32
@@ -2212,6 +2392,7 @@ def main() -> int:
     phase_train(torch, name_limit)
     phase_oracle(torch)
     phase_dryrun(torch, name_limit)
+    phase_dist(torch, name_limit)
     summary = {"kernels": []}
     for name in COUNTED:
         main_row = rows[name][0]

@@ -9,9 +9,10 @@ bit:
 * ``SyntheticLM``  — zipfian tokens (default for benchmarks and smoke runs)
 * ``FileTokens``   — memory-mapped int32 token file, strided by step
 
-``make_global_batch`` puts a host batch on the mesh's device: tokens as
-int64 (the port's token dtype), floats in the model's dtype. Splitting a
-batch across several devices is not ported.
+``make_global_batch`` puts a host batch on the mesh: tokens as int64 (the
+port's token dtype), floats in the model's dtype, on one device as plain
+tensors, or split over ``("pod", "data")`` as DTensors on a process-group
+mesh.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
+from ..distributed.sharding import RULES, distribute, placements, resolve_spec
 from ..models.spec import torch_dtype
 
 
@@ -79,21 +81,32 @@ class FileTokens:
 
 def make_global_batch(batch_np: Dict[str, np.ndarray], mesh,
                       dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
-    """Host numpy -> tensors on the mesh's one device: integer arrays as
-    int64, float arrays in ``dtype``. A mesh of one device
-    (``launch.mesh.make_local_mesh``) only: splitting the batch over the
-    data axis of a larger mesh is not ported."""
-    if len(mesh.devices) != 1:
-        raise NotImplementedError(
-            f"a batch split over {len(mesh.devices)} devices is not "
-            f"ported; use a one-device mesh (launch.mesh.make_local_mesh)")
-    dev = mesh.devices[0]
+    """Host numpy -> tensors on the mesh: integer arrays as int64, float
+    arrays in ``dtype``. On a mesh with no process group (one device,
+    ``launch.mesh.make_local_mesh``) they are plain tensors on its device.
+    On a process-group mesh every rank holds the whole host batch (it is
+    made from ``(seed, step)`` alone) and keeps its rows: a DTensor
+    ``Shard(0)`` over the ``("pod", "data")`` axes the mesh has and
+    ``Replicate`` over ``model``, as the reference's
+    ``P(("pod", "data"))`` places it. A batch that does not divide those
+    axes is replicated, as ``resolve_spec`` replicates an indivisible
+    dim."""
+    dm = getattr(mesh, "device_mesh", None)
+    if dm is None and len(mesh.devices) != 1:
+        raise ValueError(f"a mesh of {len(mesh.devices)} devices with no "
+                         f"process group cannot hold a split batch")
+    dev = mesh.local_device
     dtype = torch_dtype(dtype)
     out = {}
     for k, v in batch_np.items():
         t = torch.from_numpy(np.ascontiguousarray(v))
-        t = t.long() if np.issubdtype(v.dtype, np.integer) else t.to(dtype)
-        out[k] = t.to(dev)
+        t = (t.long() if np.issubdtype(v.dtype, np.integer)
+             else t.to(dtype)).to(dev)
+        if dm is not None:
+            spec = resolve_spec(("batch",) + (None,) * (t.ndim - 1),
+                                t.shape, mesh, RULES)
+            t = distribute(t, placements(spec, mesh), mesh)
+        out[k] = t
     return out
 
 

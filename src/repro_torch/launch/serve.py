@@ -7,9 +7,11 @@ engine, the port of ``src/repro/launch/serve.py``.
 
 Weights are random, drawn from a ``torch.Generator`` seeded with 0 on the
 serving device; prompts are the reference's (``numpy`` seed 0, lengths 8
-to 15). The model runs on one device (``make_local_mesh``): the
-reference's production mesh needs 256 devices. ``--smoke`` serves the
-reduced config; without it, the config at full width.
+to 15). Under ``torchrun`` the model is sharded over a mesh of every
+rank (``launch.mesh.mesh_from_env``: the production mesh at 256 or 512
+ranks, else data parallelism); otherwise it runs on one device
+(``make_local_mesh``). ``--smoke`` serves the reduced config; without it,
+the config at full width.
 """
 from __future__ import annotations
 
@@ -22,31 +24,36 @@ import numpy as np
 import torch
 
 from ..configs import get_config
-from ..distributed.sharding import use_mesh
+from ..distributed.sharding import distribute_tree, use_mesh
 from ..models.lm import build_model
-from ..models.spec import init_params, param_bytes, param_count
+from ..models.spec import axes_tree, init_params, param_bytes, param_count
 from ..serve.engine import Engine, Request
-from .mesh import make_local_mesh
+from .mesh import mesh_from_env
 
 
 def serve(arch: str = "olmo-1b", smoke: bool = False, requests: int = 8,
           max_new: int = 16, max_batch: int = 4, max_seq: int = 128,
-          device="cuda", dtype: Optional[str] = None, seed: int = 0) -> dict:
+          device="cuda", dtype: Optional[str] = None, seed: int = 0,
+          mesh=None) -> dict:
     """Build the model, serve ``requests`` prompts to completion and
     return what happened: results per uid, the wall, the engine (with its
-    device timings), parameter count and bytes."""
+    device timings), parameter count and bytes. ``mesh`` (default:
+    ``mesh_from_env``) places the parameters: on a process-group mesh
+    every rank draws the same weights and keeps its shards."""
     cfg = get_config(arch)
     if smoke:
         cfg = cfg.reduced()
     if dtype is not None:
         cfg = dataclasses.replace(cfg, dtype=dtype)
-    mesh = make_local_mesh(device)
-    dev = mesh.devices[0]
+    mesh = mesh if mesh is not None else mesh_from_env(device)
+    dev = mesh.local_device
     rng = np.random.default_rng(0)
     with use_mesh(mesh):
         model = build_model(cfg)
         gen = torch.Generator(device=dev).manual_seed(seed)
-        params = init_params(model.specs(), gen, cfg.dtype)
+        specs = model.specs()
+        params = distribute_tree(init_params(specs, gen, cfg.dtype),
+                                 axes_tree(specs), mesh, params=True)
         eng = Engine(model, params, max_batch=max_batch, max_seq=max_seq)
         reqs = [Request(uid=i,
                         prompt=rng.integers(1, cfg.vocab,

@@ -6,8 +6,10 @@
         [--opt-dtype float32] [--ckpt-dir DIR] [--ckpt-every 25]
 
 ``--smoke`` trains the reduced config; without it, the config at full
-width on the one device (the reference's production mesh needs 256). The
-weights are random, drawn from a ``torch.Generator`` seeded with 0 on the
+width. Under ``torchrun`` the parameters, moments and batches are
+sharded over a mesh of every rank (``launch.mesh.mesh_from_env``);
+otherwise the run takes one device, where the reference takes its
+production mesh. The weights are random, drawn from a ``torch.Generator`` seeded with 0 on the
 training device; the batches are ``SyntheticLM``'s. The loop runs under
 the fault-tolerance supervisor: checkpoint cadence, crash recovery,
 straggler flagging. It prints the reference's lines: ``step … loss …
@@ -27,11 +29,11 @@ from ..checkpoint.checkpointer import Checkpointer
 from ..configs import TrainConfig, get_config
 from ..data.pipeline import SyntheticLM, make_global_batch
 from ..distributed.fault_tolerance import run_resilient_loop
-from ..distributed.sharding import use_mesh
+from ..distributed.sharding import distribute_tree, use_mesh
 from ..models.lm import build_model
-from ..models.spec import init_params, param_count, tree_leaves
+from ..models.spec import axes_tree, init_params, param_count, tree_leaves
 from ..train.train_step import make_train_step
-from .mesh import make_local_mesh
+from .mesh import mesh_from_env
 
 
 class _StepMeter:
@@ -84,19 +86,25 @@ def train(arch: str = "olmo-1b", smoke: bool = False, steps: int = 20,
           microbatches: int = 1, remat: str = "none",
           opt_dtype: str = "float32", ckpt_dir: Optional[str] = None,
           ckpt_every: int = 25, device="cuda",
-          log: Optional[Callable[[str], None]] = None) -> dict:
+          log: Optional[Callable[[str], None]] = None, mesh=None) -> dict:
     """Build the model, train ``steps`` steps and return what happened:
     the config, the final parameters and optimizer state, every step's
     loss and gradient norm, and on the card each step's ms (whole, its
     gradients with their norm, its update; CUDA events), each part's peak
     of allocated memory, and the peak over the whole run (set-up
     included). ``ckpt_dir=None`` takes no checkpoints; ``log`` gets the
-    printed lines."""
+    printed lines. ``mesh`` (default: ``mesh_from_env``) places the
+    parameters, moments and batches; checkpoints of a run sharded over a
+    process group are not written (the checkpointer holds whole tensors),
+    so such a run takes ``ckpt_dir=None``."""
     cfg = get_config(arch)
     if smoke:
         cfg = cfg.reduced()
-    mesh = make_local_mesh(device)
-    dev = mesh.devices[0]
+    mesh = mesh if mesh is not None else mesh_from_env(device)
+    if mesh.device_mesh is not None and ckpt_dir is not None:
+        raise ValueError("checkpoints of a sharded run are not written: "
+                         "pass ckpt_dir=None (--ckpt-dir '')")
+    dev = mesh.local_device
     on_card = dev.type == "cuda"
     tc = TrainConfig(lr=lr, microbatches=microbatches, remat=remat,
                      opt_state_dtype=opt_dtype)
@@ -108,7 +116,9 @@ def train(arch: str = "olmo-1b", smoke: bool = False, steps: int = 20,
 
         def first_state():
             gen = torch.Generator(device=dev).manual_seed(0)
-            params = init_params(model.specs(), gen, cfg.dtype)
+            specs = model.specs()
+            params = distribute_tree(init_params(specs, gen, cfg.dtype),
+                                     axes_tree(specs), mesh, params=True)
             return params, opt.init(params)
 
         # the loop gets the only reference to the first state (a name here
@@ -172,7 +182,7 @@ def main(argv: Optional[List[str]] = None):
     rep = train(args.arch, smoke=args.smoke, steps=args.steps,
                 batch=args.batch, seq=args.seq, lr=args.lr,
                 microbatches=args.microbatches, remat=args.remat,
-                opt_dtype=args.opt_dtype, ckpt_dir=args.ckpt_dir,
+                opt_dtype=args.opt_dtype, ckpt_dir=args.ckpt_dir or None,
                 ckpt_every=args.ckpt_every, device=args.device,
                 log=lambda line: print(line, flush=True))
     print("done.")

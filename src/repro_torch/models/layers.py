@@ -19,9 +19,12 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..configs.base import ModelConfig
-from ..distributed.sharding import constrain
+from ..distributed.sharding import (as_dtensor, constrain, redistribute,
+                                    shard_offset)
+from ..distributed.spmd import einsum, reshape
 from .spec import Spec, wide
 
 
@@ -99,7 +102,7 @@ def apply_rope(x, pos, theta: float, mrope_sections=None):
     xf1, xf2 = x[..., ::2].to(acc), x[..., 1::2].to(acc)
     o1 = xf1 * cos - xf2 * sin
     o2 = xf2 * cos + xf1 * sin
-    return torch.stack([o1, o2], dim=-1).reshape(x.shape).to(x.dtype)
+    return reshape(torch.stack([o1, o2], dim=-1), x.shape).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -118,9 +121,9 @@ def attn_specs(cfg: ModelConfig, cross: bool = False):
 
 
 def _qkv(p, cfg: ModelConfig, xq, xkv):
-    q = torch.einsum("bsd,dhk->bshk", xq, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", xkv, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", xkv, p["wv"])
+    q = einsum("bsd,dhk->bshk", xq, p["wq"])
+    k = einsum("bsd,dhk->bshk", xkv, p["wk"])
+    v = einsum("bsd,dhk->bshk", xkv, p["wv"])
     q = constrain(q, ("batch", None, "heads", None))
     k = constrain(k, ("batch", None, "kv_heads", None))
     v = constrain(v, ("batch", None, "kv_heads", None))
@@ -139,14 +142,14 @@ def _sdpa(q, k, v, mask, cfg: ModelConfig):
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
     rep = H // KV
-    qg = q.reshape(B, Sq, KV, rep, hd)
-    logits = torch.einsum("bqkrh,bskh->bkrqs", qg.to(acc), k.to(acc))
+    qg = reshape(q, B, Sq, KV, rep, hd)
+    logits = einsum("bqkrh,bskh->bkrqs", qg.to(acc), k.to(acc))
     logits = logits / math.sqrt(hd)
     if mask is not None:
         logits = logits.masked_fill(~mask[:, None, None, :, :], -1e30)
     w = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bkrqs,bskh->bqkrh", w, v.to(acc))
-    return out.reshape(B, Sq, H, hd).to(q.dtype)
+    out = einsum("bkrqs,bskh->bqkrh", w, v.to(acc))
+    return reshape(out, B, Sq, H, hd).to(q.dtype)
 
 
 def attention(p, cfg: ModelConfig, x, pos, *, causal: bool,
@@ -164,16 +167,58 @@ def attention(p, cfg: ModelConfig, x, pos, *, causal: bool,
         ar = torch.arange(S, device=x.device)
         mask = (ar[:, None] >= ar[None, :])[None]             # (1,S,S)
     o = _sdpa(q, k, v, mask, cfg)
-    y = torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    y = einsum("bshk,hkd->bsd", o, p["wo"])
     return constrain(y, ("batch", None, None)), (k, v)
 
 
 def cross_attention(p, cfg: ModelConfig, x, enc_kv):
     """Decoder cross-attention against precomputed encoder K/V."""
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    q = einsum("bsd,dhk->bshk", x, p["wq"])
     k, v = enc_kv
     o = _sdpa(q, k, v, None, cfg)
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    return einsum("bshk,hkd->bsd", o, p["wo"])
+
+
+def _write_rows(cache, pos, row):
+    """``cache`` (B, S_max, KV, hd) with ``row[b]`` set at sequence index
+    ``pos[b]`` of every batch slot ``b``.
+
+    On a DTensor cache whose sequence axis is split ('cache_seq' over
+    'model'), DTensor's ``index_put`` would all-gather the whole cache to
+    write one row. Here each rank writes the rows that fall in its own
+    block of the sequence and keeps the others (a ``local_map``): the
+    cache stays where it is, and only the new row (and ``pos``) is
+    brought to the cache's placement over the batch and the KV heads."""
+    if not isinstance(cache, DTensor):
+        rows = (torch.arange(cache.shape[0], device=pos.device), pos)
+        return cache.index_put(rows, row)
+    from torch.distributed.tensor.experimental import local_map
+    seq = [isinstance(q, Shard) and q.dim == 1 for q in cache.placements]
+    # the row lacks the sequence axis: dims past it move down by one
+    row_pl = tuple(Replicate() if s or not isinstance(q, Shard)
+                   else Shard(q.dim - (q.dim > 1))
+                   for s, q in zip(seq, cache.placements))
+    pos_pl = tuple(q if isinstance(q, Shard) and q.dim == 0 else Replicate()
+                   for q in cache.placements)
+    mesh = cache.device_mesh
+
+    def placed(t, pl):
+        return redistribute(as_dtensor(t, mesh), pl)
+    s0 = shard_offset(cache, 1)
+
+    def local(c, ps, r):
+        n = c.shape[1]
+        at = ps - s0
+        inside = (at >= 0) & (at < n)
+        b = torch.arange(c.shape[0], device=c.device)
+        at = at.clamp(0, n - 1)
+        keep = c[b, at]
+        return c.index_put((b, at), torch.where(inside[:, None, None], r,
+                                                keep))
+    return local_map(local, out_placements=list(cache.placements),
+                     in_placements=(cache.placements, pos_pl, row_pl),
+                     device_mesh=mesh)(cache, placed(pos, pos_pl),
+                                       placed(row, row_pl))
 
 
 def attention_decode(p, cfg: ModelConfig, x, cache_k, cache_v, pos):
@@ -193,15 +238,14 @@ def attention_decode(p, cfg: ModelConfig, x, cache_k, cache_v, pos):
             rp = pos[:, None]
         q = apply_rope(q, rp, cfg.rope_theta, sections)
         k = apply_rope(k, rp, cfg.rope_theta, sections)
-    rows = (torch.arange(B, device=pos.device), pos)
-    cache_k = cache_k.index_put(rows, k[:, 0].to(cache_k.dtype))
-    cache_v = cache_v.index_put(rows, v[:, 0].to(cache_v.dtype))
+    cache_k = _write_rows(cache_k, pos, k[:, 0].to(cache_k.dtype))
+    cache_v = _write_rows(cache_v, pos, v[:, 0].to(cache_v.dtype))
     cache_k = constrain(cache_k, ("batch", "cache_seq", "kv_heads", None))
     cache_v = constrain(cache_v, ("batch", "cache_seq", "kv_heads", None))
     valid = (torch.arange(Smax, device=pos.device)[None, :]
              <= pos[:, None])[:, None, :]                      # (B,1,Smax)
     o = _sdpa(q, cache_k, cache_v, valid, cfg)
-    y = torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    y = einsum("bshk,hkd->bsd", o, p["wo"])
     return constrain(y, ("batch", None, None)), cache_k, cache_v
 
 
@@ -248,23 +292,23 @@ def apply_mlp(p, cfg: ModelConfig, x):
         xb = _sign_ste(x.to(acc))
         if cfg.act == "swiglu":
             wb = _sign_ste(p["wi"].to(acc))
-            h = torch.einsum("bsd,dcf->bcsf", xb, wb)
+            h = einsum("bsd,dcf->bcsf", xb, wb)
             h = F.silu(h[:, 0]) * h[:, 1]
         else:
-            h = _gelu(torch.einsum("bsd,df->bsf", xb,
+            h = _gelu(einsum("bsd,df->bsf", xb,
                                    _sign_ste(p["wi"].to(acc))))
         h = constrain(h.to(x.dtype), ("batch", None, "mlp"))
-        y = torch.einsum("bsf,fd->bsd", _sign_ste(h.to(acc)),
+        y = einsum("bsf,fd->bsd", _sign_ste(h.to(acc)),
                          _sign_ste(p["wo"].to(acc))).to(x.dtype)
         return constrain(y, ("batch", None, None))
     if cfg.act == "swiglu":
-        h = torch.einsum("bsd,dcf->bcsf", x, p["wi"])
+        h = einsum("bsd,dcf->bcsf", x, p["wi"])
         h = (F.silu(h[:, 0].to(acc)) * h[:, 1].to(acc)).to(x.dtype)
     else:
-        h = torch.einsum("bsd,df->bsf", x, p["wi"])
+        h = einsum("bsd,df->bsf", x, p["wi"])
         h = _gelu(h.to(acc)).to(x.dtype)
     h = constrain(h, ("batch", None, "mlp"))
-    y = torch.einsum("bsf,fd->bsd", h, p["wo"])
+    y = einsum("bsf,fd->bsd", h, p["wo"])
     return constrain(y, ("batch", None, None))
 
 
@@ -300,9 +344,9 @@ def apply_moe(p, cfg: ModelConfig, x):
     T = B * S
     Tg = min(MOE_GROUP, T)
     G = T // Tg
-    xt = x.reshape(G, Tg, D)
+    xt = reshape(x, G, Tg, D)
     xt = constrain(xt, ("batch", None, None))
-    logits = torch.einsum("gtd,de->gte", xt.to(acc), p["router"].to(acc))
+    logits = einsum("gtd,de->gte", xt.to(acc), p["router"].to(acc))
     gates = torch.softmax(logits, dim=-1)
     topg, topi = torch.topk(gates, k, dim=-1)                 # (G, Tg, k)
     topg = topg / torch.clamp(topg.sum(-1, keepdim=True), min=1e-9)
@@ -310,31 +354,31 @@ def apply_moe(p, cfg: ModelConfig, x):
     C = max(int(k * Tg * cfg.capacity_factor / E), 1)
     # rank of each (token, slot) within its expert's queue, per group
     onehot = F.one_hot(topi, E).to(torch.int32)               # (G,Tg,k,E)
-    flat = onehot.reshape(G, Tg * k, E)
-    ranks = (torch.cumsum(flat, dim=1) - flat).reshape(G, Tg, k, E)
+    flat = reshape(onehot, G, Tg * k, E)
+    ranks = reshape(torch.cumsum(flat, dim=1) - flat, G, Tg, k, E)
     rank = (ranks * onehot).sum(-1)                           # (G, Tg, k)
     keep = rank < C
     bf16 = torch.bfloat16
     disp = (onehot * keep[..., None]).to(bf16)
     pos_oh = F.one_hot(torch.clamp(rank, 0, C - 1).long(), C).to(bf16)
-    dispatch = torch.einsum("gtke,gtkc->gtec", disp, pos_oh)
-    combine = torch.einsum("gtke,gtkc,gtk->gtec", disp, pos_oh,
+    dispatch = einsum("gtke,gtkc->gtec", disp, pos_oh)
+    combine = einsum("gtke,gtkc,gtk->gtec", disp, pos_oh,
                            topg.to(bf16))
     # the reference's mixed-dtype einsums promote to x's dtype; the 0/1
     # dispatch entries and bf16 gates are exact in it
-    xe = torch.einsum("gtec,gtd->gecd", dispatch.to(x.dtype), xt)
+    xe = einsum("gtec,gtd->gecd", dispatch.to(x.dtype), xt)
     xe = constrain(xe, ("batch", "experts", None, None))
     if cfg.act == "swiglu":
-        h = torch.einsum("gecd,edzf->gezcf", xe, p["wi"])
+        h = einsum("gecd,edzf->gezcf", xe, p["wi"])
         h = (F.silu(h[:, :, 0].to(acc))
              * h[:, :, 1].to(acc)).to(x.dtype)
     else:
-        h = _gelu(torch.einsum("gecd,edf->gecf", xe,
+        h = _gelu(einsum("gecd,edf->gecf", xe,
                                p["wi"]).to(acc)).to(x.dtype)
     h = constrain(h, ("batch", "experts", None, "mlp"))
-    ye = torch.einsum("gecf,efd->gecd", h, p["wo"])
-    y = torch.einsum("gtec,gecd->gtd", combine.to(ye.dtype), ye)
-    return constrain(y.reshape(B, S, D), ("batch", None, None))
+    ye = einsum("gecf,efd->gecd", h, p["wo"])
+    y = einsum("gtec,gecd->gtd", combine.to(ye.dtype), ye)
+    return constrain(reshape(y, B, S, D), ("batch", None, None))
 
 
 # ---------------------------------------------------------------------------
@@ -350,8 +394,47 @@ def embed_specs(cfg: ModelConfig):
     return s
 
 
+def _lookup(table, ids):
+    """``table[ids]``. On a DTensor table whose vocab is split over mesh
+    axes (``vocab`` over 'model'), each rank looks up the ids that fall in
+    its own block of rows and gives zeros for the rest, and the blocks add
+    up: a ``Partial`` sum over those axes (Megatron's vocab-parallel
+    embedding, a ``local_map``). The table's other split (FSDP of
+    'embed' over 'data') is gathered first. DTensor's own ``index`` on a
+    split table routes its backward through an ``index_put`` whose
+    sharding rule torch 2.11 refuses on the card."""
+    if not isinstance(table, DTensor):
+        return table[ids]
+    from torch.distributed.tensor.experimental import local_map
+    mesh = table.device_mesh
+    tpl = tuple(q if isinstance(q, Shard) and q.dim == 0 else Replicate()
+                for q in table.placements)
+    vocab = [isinstance(q, Shard) for q in tpl]
+    ids = as_dtensor(ids, mesh)
+    ipl = tuple(Replicate() if v or not (isinstance(q, Shard) and q.dim == 0)
+                else q for v, q in zip(vocab, ids.placements))
+    out_pl = [Partial() if v else q for v, q in zip(vocab, ipl)]
+    # each rank's table gradient holds only its own ids' rows: a pending
+    # sum over the mesh axes that split the ids
+    grad_pl = tuple(Partial() if isinstance(q, Shard) else t
+                    for t, q in zip(tpl, ipl))
+    table = redistribute(table, tpl)
+    v0 = shard_offset(table, 0)
+
+    def local(t, i):
+        at = i - v0
+        inside = (at >= 0) & (at < t.shape[0])
+        rows = t[at.clamp(0, t.shape[0] - 1)]
+        return torch.where(inside[..., None], rows,
+                           torch.zeros((), dtype=rows.dtype,
+                                       device=rows.device))
+    return local_map(local, out_placements=out_pl, in_placements=(tpl, ipl),
+                     in_grad_placements=(grad_pl, ipl),
+                     device_mesh=mesh)(table, redistribute(ids, ipl))
+
+
 def embed(p, cfg: ModelConfig, ids):
-    y = p["tok"][ids]
+    y = _lookup(p["tok"], ids)
     return constrain(y, ("batch", None, None))
 
 
@@ -360,7 +443,7 @@ def unembed(p, cfg: ModelConfig, x):
     w = p.get("unembed")
     if w is None:
         w = p["tok"].T
-    logits = torch.einsum("bsd,dv->bsv", x, w).to(acc)
+    logits = einsum("bsd,dv->bsv", x, w).to(acc)
     return constrain(logits, ("batch", None, "vocab"))
 
 

@@ -32,6 +32,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..configs.base import ModelConfig
 from ..core.engine import resolve_device
+from ..distributed.sharding import constrain
+from ..distributed.spmd import einsum, reshape
 from . import layers as L
 from . import mamba as M
 from .spec import Spec, stack_specs, torch_dtype, tree_map, wide
@@ -309,9 +311,13 @@ class Model(torch.nn.Module):
         """Per-decoder-layer-group cross K/V from the encoder output:
         ``(k, v)``, each (groups, B, S, KV, hd)."""
         attn = params["cross"]["attn"]
-        k = torch.einsum("bsd,ldhk->lbshk", enc_out, attn["wk"])
-        v = torch.einsum("bsd,ldhk->lbshk", enc_out, attn["wv"])
-        return k, v
+        k = einsum("bsd,ldhk->lbshk", enc_out, attn["wk"])
+        v = einsum("bsd,ldhk->lbshk", enc_out, attn["wv"])
+        # pinned to the decode cache's placement of the cross K/V
+        # (cache_axes): DTensor's einsum strategy may otherwise shard the
+        # group axis, which the loop over groups unbinds
+        ax = self.cache_axes()["cross_kv"][0]
+        return constrain(k, ax), constrain(v, ax)
 
     # -- forward (train / prefill) --------------------------------------------
 
@@ -326,7 +332,7 @@ class Model(torch.nn.Module):
         x = L.embed(params["embed"], cfg, tokens)
         positions3 = None
         if cfg.family == "vlm":
-            patches = torch.einsum("bpd,de->bpe", batch["patch_embeds"],
+            patches = einsum("bpd,de->bpe", batch["patch_embeds"],
                                    params["patch_proj"]["w"]).to(x.dtype)
             n_p = patches.shape[1]
             x = torch.cat([patches, x[:, :S - n_p]], dim=1)
@@ -434,9 +440,10 @@ def _sinusoid_table(pos, D: int, dtype):
     acc = wide(dtype)
     dim = torch.arange(0, D, 2, dtype=acc, device=pos.device)[None, :]
     ang = pos / torch.pow(10000.0, dim / D)
-    out = torch.zeros((pos.shape[0], D), dtype=acc, device=pos.device)
-    out[:, 0::2] = torch.sin(ang)
-    out[:, 1::2] = torch.cos(ang)
+    # sin and cos interleaved (even and odd columns); a stack, not an
+    # assignment into a new tensor, so a DTensor ``pos`` stays one
+    out = reshape(torch.stack([torch.sin(ang), torch.cos(ang)], dim=-1),
+                  pos.shape[0], D)
     return out.to(dtype)
 
 

@@ -16,9 +16,11 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..configs.base import ModelConfig
-from ..distributed.sharding import constrain
+from ..distributed.sharding import as_dtensor, constrain, redistribute
+from ..distributed.spmd import cumsum, einsum, reshape
 from .spec import Spec, wide
 
 
@@ -49,7 +51,7 @@ _PROJ_BLOCKS = 4   # partial products of a float32 projection, added pairwise
 
 
 def _proj(spec: str, x, w):
-    """``torch.einsum(spec, x, w)`` contracting ``x``'s last axis with
+    """``einsum(spec, x, w)`` contracting ``x``'s last axis with
     ``w``'s first. In float32 the contraction runs as ``_PROJ_BLOCKS``
     partial products added pairwise. Torch's CPU BLAS sums a 64-wide contraction
     in one float32 chain, about 1.7x further from float64 than XLA's CPU
@@ -60,9 +62,9 @@ def _proj(spec: str, x, w):
     bfloat16 partial sums would round each block."""
     k = w.shape[0]
     if x.dtype != torch.float32 or k % _PROJ_BLOCKS:
-        return torch.einsum(spec, x, w)
+        return einsum(spec, x, w)
     step = k // _PROJ_BLOCKS
-    parts = [torch.einsum(spec, x[..., i:i + step], w[i:i + step])
+    parts = [einsum(spec, x[..., i:i + step], w[i:i + step])
              for i in range(0, k, step)]
     while len(parts) > 1:
         parts = [parts[i] + parts[i + 1] for i in range(0, len(parts), 2)]
@@ -70,7 +72,41 @@ def _proj(spec: str, x, w):
 
 
 def _causal_conv(x, w, b):
-    """Depthwise causal conv via static shifts. x (B,S,C), w (K,C)."""
+    """Depthwise causal conv via static shifts. x (B,S,C), w (K,C).
+
+    On DTensors the conv runs on each rank's shard (a ``local_map``): it
+    is per channel, so it needs the whole sequence and the channels of
+    ``w`` and ``b`` that its block of ``x`` holds, nothing else. The
+    sequence is gathered where it is split, and the weights follow the
+    channel split of ``x``. (torch 2.11's DTensor ``pad`` fails to
+    redistribute its input on the card.)"""
+    if isinstance(x, DTensor):
+        return _causal_conv_sharded(x, w, b)
+    return _causal_conv_local(x, w, b)
+
+
+def _causal_conv_sharded(x, w, b):
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    xpl = tuple(Replicate() if isinstance(q, Shard) and q.dim == 1 else q
+                for q in x.placements)
+    chan = [isinstance(q, Shard) and q.dim == 2 for q in xpl]
+    wpl = tuple(Shard(1) if c else Replicate() for c in chan)
+    bpl = tuple(Shard(0) if c else Replicate() for c in chan)
+    # the weights' gradient on a rank holds its rows of the batch only
+    rows = [isinstance(q, Shard) and q.dim == 0 for q in xpl]
+    wgrad = tuple(Partial() if r else q for r, q in zip(rows, wpl))
+    bgrad = tuple(Partial() if r else q for r, q in zip(rows, bpl))
+    w, b = as_dtensor(w, mesh), as_dtensor(b, mesh)
+    return local_map(_causal_conv_local, out_placements=list(xpl),
+                     in_placements=(xpl, wpl, bpl),
+                     in_grad_placements=(xpl, wgrad, bgrad),
+                     device_mesh=mesh)(redistribute(x, xpl),
+                                       redistribute(w, wpl),
+                                       redistribute(b, bpl))
+
+
+def _causal_conv_local(x, w, b):
     acc = wide(x.dtype)
     K = w.shape[0]
     out = x * w[-1]
@@ -83,7 +119,7 @@ def _causal_conv(x, w, b):
 def _segsum(dA):
     """dA (..., L) -> (..., L, L) lower-tri cumulative sums for the decay."""
     L = dA.shape[-1]
-    cs = torch.cumsum(dA, dim=-1)
+    cs = cumsum(dA, dim=-1)
     diff = cs[..., :, None] - cs[..., None, :]
     mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=dA.device))
     return diff.masked_fill(~mask, float("-inf"))
@@ -102,22 +138,22 @@ def ssd_chunked(x, dt, A, B, C, D, chunk: int = 256,
     if s % chunk:
         raise ValueError(f"sequence {s} is not a multiple of chunk {chunk}")
     c = s // chunk
-    xf = x.to(acc).reshape(b, c, chunk, h, p)
-    dtf = dt.to(acc).reshape(b, c, chunk, h)
-    Bf = B.to(acc).reshape(b, c, chunk, n)
-    Cf = C.to(acc).reshape(b, c, chunk, n)
+    xf = reshape(x.to(acc), b, c, chunk, h, p)
+    dtf = reshape(dt.to(acc), b, c, chunk, h)
+    Bf = reshape(B.to(acc), b, c, chunk, n)
+    Cf = reshape(C.to(acc), b, c, chunk, n)
     dA = dtf * A  # (b,c,l,h)
 
     # intra-chunk (quadratic within chunk)
     Ldec = torch.exp(_segsum(dA.movedim(-1, -2)))             # (b,c,h,l,l)
-    scores = torch.einsum("bcin,bcjn->bcij", Cf, Bf)          # (b,c,l,l)
+    scores = einsum("bcin,bcjn->bcij", Cf, Bf)          # (b,c,l,l)
     att = scores[:, :, None] * Ldec                           # (b,c,h,l,l)
-    y_intra = torch.einsum("bchij,bcjh,bcjhp->bcihp", att, dtf, xf)
+    y_intra = einsum("bchij,bcjh,bcjhp->bcihp", att, dtf, xf)
 
     # chunk-final states
-    dA_cum = torch.cumsum(dA, dim=2)                          # (b,c,l,h)
+    dA_cum = cumsum(dA, dim=2)                          # (b,c,l,h)
     decay_to_end = torch.exp(dA_cum[:, :, -1:, :] - dA_cum)   # (b,c,l,h)
-    states = torch.einsum("bcln,bclh,bclhp->bchpn",
+    states = einsum("bcln,bclh,bclhp->bchpn",
                           Bf, dtf * decay_to_end, xf)         # (b,c,h,p,n)
     chunk_decay = torch.exp(dA_cum[:, :, -1, :])              # (b,c,h)
 
@@ -133,11 +169,11 @@ def ssd_chunked(x, dt, A, B, C, D, chunk: int = 256,
 
     # inter-chunk contribution
     in_decay = torch.exp(dA_cum)                              # (b,c,l,h)
-    y_inter = torch.einsum("bcln,bclh,bchpn->bclhp", Cf, in_decay,
+    y_inter = einsum("bcln,bclh,bchpn->bclhp", Cf, in_decay,
                            prev_states)
 
     y = y_intra + y_inter + D[None, None, :, None] * xf
-    return y.reshape(b, s, h, p).to(x.dtype), carry
+    return reshape(y, b, s, h, p).to(x.dtype), carry
 
 
 def ssd_step(x, dt, A, B, C, D, state):
@@ -146,9 +182,9 @@ def ssd_step(x, dt, A, B, C, D, state):
     acc = wide(x.dtype)
     xf, dtf = x.to(acc), dt.to(acc)
     dA = torch.exp(dtf * A)                                   # (b,h)
-    new_state = state * dA[..., None, None] + torch.einsum(
+    new_state = state * dA[..., None, None] + einsum(
         "bh,bn,bhp->bhpn", dtf, B.to(acc), xf)
-    y = torch.einsum("bn,bhpn->bhp", C.to(acc), new_state) \
+    y = einsum("bn,bhpn->bhp", C.to(acc), new_state) \
         + D[None, :, None] * xf
     return y.to(x.dtype), new_state
 
@@ -168,9 +204,9 @@ def apply_mamba(p, cfg: ModelConfig, x, *, chunk: int = 256):
     xs, Bc, Cc = torch.split(xbc, [DI, N, N], dim=-1)
     dtv = F.softplus(dt.to(acc) + p["dt_bias"])               # (B,S,H)
     A = -torch.exp(p["A_log"])                                # (H,)
-    y, state = ssd_chunked(xs.reshape(B_, S, H, Pd), dtv, A, Bc, Cc,
+    y, state = ssd_chunked(reshape(xs, B_, S, H, Pd), dtv, A, Bc, Cc,
                            p["D"], chunk=chunk)
-    y = y.reshape(B_, S, DI) * F.silu(z.to(acc)).to(x.dtype)
+    y = reshape(y, B_, S, DI) * F.silu(z.to(acc)).to(x.dtype)
     out = _proj("bse,ed->bsd", y, p["out_proj"])
     K = cfg.conv_dim
     conv_tail = xbc_raw[:, -(K - 1):, :]
@@ -188,15 +224,15 @@ def apply_mamba_step(p, cfg: ModelConfig, x, conv_state, ssm_state):
     z, xs, Bc, Cc, dt = _split_proj(cfg, zxbcdt)
     xbc = torch.cat([xs, Bc, Cc], dim=-1)                     # (B, conv_ch)
     window = torch.cat([conv_state, xbc[:, None, :]], dim=1)  # (B,K,ch)
-    conv_out = torch.einsum("bkc,kc->bc", window.to(acc),
+    conv_out = einsum("bkc,kc->bc", window.to(acc),
                             p["conv_w"].to(acc)) + p["conv_b"].to(acc)
     xbc = F.silu(conv_out).to(x.dtype)
     xs, Bc, Cc = torch.split(xbc, [DI, N, N], dim=-1)
     dtv = F.softplus(dt.to(acc) + p["dt_bias"])               # (B,H)
     A = -torch.exp(p["A_log"])
-    y, new_ssm = ssd_step(xs.reshape(B_, H, Pd), dtv, A, Bc, Cc, p["D"],
+    y, new_ssm = ssd_step(reshape(xs, B_, H, Pd), dtv, A, Bc, Cc, p["D"],
                           ssm_state)
-    y = y.reshape(B_, DI) * F.silu(z.to(acc)).to(x.dtype)
+    y = reshape(y, B_, DI) * F.silu(z.to(acc)).to(x.dtype)
     out = _proj("be,ed->bd", y, p["out_proj"])[:, None, :]
     return out, window[:, 1:, :], new_ssm
 

@@ -10,6 +10,14 @@ does), ``v`` as ``sqrt(v)``, and the update is clipped to ±5.
 
 ``update`` returns new trees and leaves its arguments as they were, as
 the reference's pure function does.
+
+On DTensor parameters the moments are placed as the reference's dry run
+places them (``opt_state_shardings``): an int8 moment's codes follow
+their parameter and its scale drops the last dim's split; a float32
+moment takes ZeRO-1, its parameter's placement with the first
+unsplit dim that divides the 'data' axis split over it as well. The
+update computes in those placements; the new parameter is redistributed
+to its own (ZeRO-1's all-gather of the update over 'data').
 """
 from __future__ import annotations
 
@@ -18,8 +26,10 @@ import math
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..configs.base import TrainConfig
+from ..distributed.sharding import dtensor_zeros, redistribute
 from ..models.spec import tree_leaves, tree_map, tree_unflatten
 
 F32 = torch.float32
@@ -48,16 +58,54 @@ def _dequantize(qt: QTensor, shape) -> torch.Tensor:
     return (qt.q.to(F32) * qt.scale).reshape(shape)
 
 
+def state_placements(p: DTensor, int8: bool):
+    """The placements of ``p``'s moments: ``(q, scale)`` for int8 codes,
+    one tuple for a float32 moment."""
+    pl = tuple(p.placements)
+    if int8:
+        last = p.ndim - 1
+        scale = tuple(Replicate() if isinstance(x, Shard) and x.dim == last
+                      else x for x in pl)
+        return pl, scale
+    mesh = p.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    if "data" not in names:
+        return pl
+    d = names.index("data")
+    if not isinstance(pl[d], Replicate):
+        return pl
+    split = {x.dim for x in pl if isinstance(x, Shard)}
+    dsize = mesh.size(d)
+    for i, n in enumerate(p.shape):
+        if i not in split and n > 0 and n % dsize == 0:
+            return pl[:d] + (Shard(i),) + pl[d + 1:]
+    return pl
+
+
+def _placed(x: torch.Tensor, like: torch.Tensor, want=None):
+    """``x`` redistributed to ``want`` (default: ``like``'s placements)
+    when ``like`` is a DTensor; ``x`` itself otherwise."""
+    if not isinstance(like, DTensor):
+        return x
+    return redistribute(x, tuple(want or like.placements))
+
+
 @dataclasses.dataclass
 class AdamW:
     tc: TrainConfig
 
     def init(self, params):
-        """Zero moments beside every parameter, on its device, and the
-        step count (a 0-d int32 tensor on the first parameter's device)."""
+        """Zero moments beside every parameter, on its device (a DTensor
+        parameter's moments are DTensors placed by
+        :func:`state_placements`), and the step count (a 0-d int32 tensor
+        on the first parameter's device)."""
+        int8 = self.tc.opt_state_dtype == "int8"
+
         def one(p):
+            if isinstance(p, DTensor):
+                return _dtensor_moments(p, int8)
             z = torch.zeros(p.shape, dtype=F32, device=p.device)
-            if self.tc.opt_state_dtype == "int8":
+            if int8:
                 return {"m": _quantize(z), "v": _quantize(z)}
             return {"m": z, "v": torch.zeros_like(z)}
         device = tree_leaves(params)[0].device
@@ -104,7 +152,7 @@ class AdamW:
         bc2 = 1 - b2 ** step.to(F32)
 
         def one(g, mu, p):
-            gf = g.to(F32)
+            gf = _placed(g.to(F32), mu["m"].q if int8 else mu["m"])
             if int8:
                 # v is stored as sqrt(v) (halves the dynamic range a linear
                 # int8 code must span); updates are clipped: both standard
@@ -118,12 +166,13 @@ class AdamW:
             upd = (m / bc1) / (torch.sqrt(v / bc2) + tc.eps)
             if int8:
                 upd = torch.clamp(upd, -5.0, 5.0)
-            pf = p.to(F32)
+            pf = _placed(p.to(F32), upd)
             new_p = (pf - lr * (upd + tc.weight_decay * pf)).to(p.dtype)
+            new_p = _placed(new_p, p)
             if int8:
-                return new_p, {"m": _quantize(m),
-                               "v": _quantize(torch.sqrt(v))}
-            return new_p, {"m": m, "v": v}
+                return new_p, {"m": _requantize(m, mu["m"]),
+                               "v": _requantize(torch.sqrt(v), mu["v"])}
+            return new_p, {"m": _placed(m, mu["m"]), "v": _placed(v, mu["v"])}
 
         flat_g = tree_leaves(grads)
         flat_p = tree_leaves(params)
@@ -138,6 +187,34 @@ class AdamW:
         new_params = tree_unflatten(grads, [o[0] for o in outs])
         new_mu = tree_unflatten(grads, [o[1] for o in outs])
         return new_params, {"mu": new_mu, "step": step}
+
+
+def _dtensor_moments(p: DTensor, int8: bool) -> dict:
+    """Zero moments of a DTensor parameter, each rank allocating only its
+    shards on the parameter's device (:func:`state_placements`)."""
+    mesh = p.device_mesh
+    dev = p.to_local().device
+    shape = tuple(p.shape)
+
+    def z(shape, dtype, pl):
+        return dtensor_zeros(shape, dtype, mesh, pl, dev)
+    if int8:
+        qpl, spl = state_placements(p, True)
+        sshape = shape[:-1] + (1,) if shape else ()
+
+        def q():   # _quantize of zeros: zero codes, a scale of 1e-12
+            return QTensor(z(shape, torch.int8, qpl),
+                           z(sshape, F32, spl) + 1e-12)
+        return {"m": q(), "v": q()}
+    pl = state_placements(p, False)
+    return {"m": z(shape, F32, pl), "v": z(shape, F32, pl)}
+
+
+def _requantize(x: torch.Tensor, like: QTensor) -> QTensor:
+    """``_quantize(x)`` with the codes and scale in ``like``'s
+    placements (plain tensors where ``like`` holds plain tensors)."""
+    qt = _quantize(x)
+    return QTensor(_placed(qt.q, like.q), _placed(qt.scale, like.scale))
 
 
 def make_optimizer(tc: TrainConfig) -> AdamW:

@@ -7,6 +7,11 @@ slot-based continuous batching, EOS retirement, and greedy or temperature
 sampling. The batching loop is host-side, as in real serving systems; the
 model runs eagerly on the parameters' device.
 
+On a process-group mesh (``use_mesh``) the engine serves DTensor
+parameters: the cache is placed by ``Model.cache_axes``, a prefill's
+rows are written into each rank's own block of it, and the logits are
+gathered whole to the host, where sampling reads them.
+
 Every prefill and decode step is timed on the device: CUDA events on a
 card (read after the step's logits reach the host, which waits for them
 anyway), the host clock on the CPU. :meth:`Engine.timings` returns them.
@@ -20,8 +25,18 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from torch.distributed.tensor import DTensor
+
+from ..distributed.sharding import distribute_tree, write_block
 from ..models.lm import Model
 from ..models.spec import torch_dtype, tree_leaves
+
+
+def _host(x: torch.Tensor) -> np.ndarray:
+    """Logits on the host for sampling (a DTensor gathered whole)."""
+    if isinstance(x, DTensor):
+        x = x.full_tensor()
+    return x.float().cpu().numpy()
 
 
 @dataclasses.dataclass
@@ -84,9 +99,9 @@ class Engine:
         self.temperature = temperature
         self.eos_id = eos_id
         self.generator = generator
-        self.cache = model.init_cache(self.B, self.S,
-                                      torch_dtype(self.cfg.dtype),
-                                      device=self.device)
+        self.cache = distribute_tree(
+            model.init_cache(self.B, self.S, torch_dtype(self.cfg.dtype),
+                             device=self.device), model.cache_axes())
         self.pos = np.zeros(self.B, np.int64)         # next write index / slot
         self.slots: List[Optional[Request]] = [None] * self.B
         self._prefill_t: List[Tuple[int, _Timer]] = []
@@ -119,15 +134,18 @@ class Engine:
         for name, c in caches.items():
             dst = layers[name]
             if "k" in c:  # attention
-                dst["k"][:, slot, :S_p] = c["k"][:, 0].to(dst["k"].dtype)
-                dst["v"][:, slot, :S_p] = c["v"][:, 0].to(dst["v"].dtype)
+                for kv in ("k", "v"):
+                    dst[kv] = write_block(dst[kv], (slice(None), slot,
+                                                    slice(0, S_p)),
+                                          c[kv][:, 0])
             else:          # mamba states
-                dst["conv"][:, slot] = c["conv"][:, 0].to(dst["conv"].dtype)
-                dst["ssm"][:, slot] = c["ssm"][:, 0]
+                for st in ("conv", "ssm"):
+                    dst[st] = write_block(dst[st], (slice(None), slot),
+                                          c[st][:, 0])
         timer.stop()
         self.pos[slot] = S_p
         req.out = []
-        first = self._sample(last_logits[0].float().cpu().numpy())
+        first = self._sample(_host(last_logits)[0])
         self._prefill_t.append((req.uid, timer))
         req.out.append(int(first))
         self.slots[slot] = req
@@ -160,7 +178,7 @@ class Engine:
         timer.stop()
         self._decode_t.append(timer)
         out = []
-        logits_np = logits[:, 0].float().cpu().numpy()
+        logits_np = _host(logits)[:, 0]
         for i in live:
             req = self.slots[i]
             tok = self._sample(logits_np[i])

@@ -22,7 +22,11 @@ and against its own accounting.
 * ``fits`` flips when the capacity passes the peak; the meter reads the
   same flops and peak on ``meta`` as on the CPU's real tensors, and the
   same operator bytes but for the MoE's ``one_hot`` (within 0.5%); the
-  CLI writes one JSON per cell; ``multi_pod`` raises.
+  CLI writes one JSON per cell.
+* Sharded: reduced olmo-1b's cells on the 16×16 mesh (a fake process
+  group) have the reference's per-device argument bytes; one dense
+  layer's collectives are the closed form of its FSDP all-gathers and
+  its tensor-parallel all-reduce; ``multi_pod`` runs the 2×16×16 mesh.
 """
 import dataclasses
 import json
@@ -39,8 +43,16 @@ from torch.utils.flop_counter import FlopCounterMode  # noqa: E402
 
 from repro_torch.configs import (ASSIGNED, SHAPES, ShapeConfig,  # noqa: E402
                                  TrainConfig, get_config, shapes_for)
+from repro_torch.distributed.sharding import (distribute_tree,  # noqa: E402
+                                              use_mesh)
 from repro_torch.launch import dryrun as D  # noqa: E402
+from repro_torch.launch.hlo_analysis import (H100_NVLINK_BW,  # noqa: E402
+                                             CollectiveMeter,
+                                             collective_bytes)
+from repro_torch.launch.mesh import make_production_mesh  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
+from repro_torch.models.spec import abstract_params, axes_tree  # noqa: E402
+from torch.distributed.tensor import Replicate, Shard  # noqa: E402
 
 _REF_SCRIPT = """
 import json
@@ -62,6 +74,44 @@ for arch in ASSIGNED:
     out[arch] = {"total": R.n_params(cfg),
                  "active": R.n_params(cfg, active_only=True),
                  "inputs": inputs}
+# per-device argument bytes of reduced olmo-1b's cells on the 16x16 mesh:
+# XLA's memory analysis of a program taking the cell's arguments placed as
+# R.run_cell places them
+import jax.numpy as jnp
+from repro.configs import SHAPES, TrainConfig
+from repro.distributed.sharding import tree_shardings
+from repro.launch.mesh import make_production_mesh
+from repro.models.lm import build_model
+from repro.models.spec import abstract_params, axes_tree
+from repro.train.train_step import make_train_step
+cfg = get_config("olmo-1b").reduced()
+pmesh = make_production_mesh()
+args_bytes = {}
+for name in ("prefill_32k", "train_4k", "decode_32k"):
+    shape = SHAPES[name]
+    model = build_model(cfg)
+    specs = model.specs()
+    ap = abstract_params(specs, cfg.dtype)
+    psh = tree_shardings(axes_tree(specs), ap, pmesh, params=True)
+    ins, insh = R.input_specs(cfg, shape, pmesh)
+    if shape.kind == "train":
+        _, opt = make_train_step(model, TrainConfig(
+            remat="full", opt_state_dtype="int8", microbatches=8))
+        ao = opt.abstract_init(ap)
+        args = (ap, ao, ins)
+        shs = (psh, R.opt_state_shardings(ao, psh, pmesh), insh)
+    elif shape.kind == "prefill":
+        args, shs = (ap, ins), (psh, insh)
+    else:
+        cache = jax.eval_shape(lambda: model.init_cache(
+            shape.global_batch, shape.seq_len, jnp.dtype(cfg.dtype)))
+        csh = tree_shardings(model.cache_axes(), cache, pmesh)
+        args = (ap, cache, ins["tokens"], ins["pos"])
+        shs = (psh, csh, insh["tokens"], insh["pos"])
+    f = jax.jit(lambda *a: 0, in_shardings=shs, keep_unused=True)
+    args_bytes[name] = int(f.lower(*args).compile().memory_analysis()
+                           .argument_size_in_bytes)
+out["args_bytes_16x16"] = args_bytes
 print(json.dumps(out))
 """
 _REF = {}
@@ -203,15 +253,89 @@ def test_meter_reads_meta_as_real_tensors(arch, kind):
 
 
 def test_cli_writes_a_cell_and_refuses_multi_pod(tmp_path):
+    """The CLI writes one JSON per cell; ``multi_pod`` is no longer
+    refused: it runs the cell as rank 0 of the 2×16×16 mesh."""
     D.main(["--arch", "mamba2-370m", "--shape", "long_500k",
             "--out", str(tmp_path)])
     res = json.loads((tmp_path / "mamba2-370m__long_500k__1.json")
                      .read_text())
     assert res["ok"] and res["memory"]["fits"]
     assert res["params_total"] == D.n_params(get_config("mamba2-370m"))
-    with pytest.raises(NotImplementedError):
-        D.run_cell("mamba2-370m", "decode_32k", multi_pod=True)
+    pod = D.run_cell("mamba2-370m", "decode_32k", multi_pod=True,
+                     cfg_overrides=_reduced("mamba2-370m"))
+    assert pod["ok"] and pod["mesh"] == "2x16x16" and pod["chips"] == 512
     with pytest.raises(SystemExit):
-        D.main(["--all", "--multi-pod", "--out", str(tmp_path)])
+        D.main(["--all", "--mesh", "4x4", "--out", str(tmp_path)])
+    D.main(["--arch", "mamba2-370m", "--shape", "long_500k", "--multi-pod",
+            "--out", str(tmp_path)])
+    res = json.loads((tmp_path / "mamba2-370m__long_500k__2x16x16.json")
+                     .read_text())
+    assert res["ok"] and res["chips"] == 512
     assert len(D.all_cells()) == sum(len(shapes_for(get_config(a)))
                                      for a in ASSIGNED)
+
+
+def _token_bytes(cfg, shape, chips_batch: int) -> int:
+    """Per-device bytes of a cell's integer inputs in int32 (the
+    reference's token dtype), over ``chips_batch`` batch shards."""
+    return sum(t.numel() * 4 for t in D.input_specs(cfg, shape).values()
+               if not t.is_floating_point()) // chips_batch
+
+
+@pytest.mark.parametrize("shape", ["prefill_32k", "train_4k", "decode_32k"])
+def test_sharded_args_bytes_equal_reference(shape):
+    """Reduced olmo-1b on the 16×16 mesh (a fake group of 256 ranks):
+    every cell runs, and its per-device ``args_bytes`` equal XLA's
+    argument bytes for the same arguments placed as the reference's
+    ``run_cell`` places them, once the port's int64 tokens (the
+    reference's are int32) are counted at 4 bytes more each. The
+    reference's ``run_cell`` itself cannot compile a sharded step with
+    this jax (its mesh's explicit axes refuse the model's
+    ``with_sharding_constraint``), so the reference side compiles a
+    program that only takes the arguments, in one subprocess."""
+    want = _reference()["args_bytes_16x16"][shape]
+    ov = _reduced("olmo-1b")
+    res = D.run_cell("olmo-1b", shape, cfg_overrides=ov, mesh="16x16")
+    cfg = dataclasses.replace(get_config("olmo-1b"), **ov)
+    assert res["ok"] and res["chips"] == 256 and res["mesh"] == "16x16"
+    assert res["memory"]["args_bytes"] == \
+        want + _token_bytes(cfg, SHAPES[shape], 16)
+    assert res["memory"]["temp_bytes"] > 0
+    assert res["collective_total"] > 0
+    assert res["collective_bytes"] == res["collective_bytes_uncorrected"]
+    assert res["roofline"]["collective_s"] == pytest.approx(
+        res["collective_total"] / H100_NVLINK_BW)
+
+
+def test_dense_layer_collectives_closed_form():
+    """One dense SwiGLU layer's forward on the 16×16 mesh: the FSDP
+    all-gathers of its two weights over 'data' and the all-reduce over
+    'model' of its output's partial sums, and nothing else."""
+    cfg = dataclasses.replace(get_config("olmo-1b").reduced(),
+                              dtype="float32")
+    Dm, F, B, S = cfg.d_model, cfg.d_ff, 32, 8
+    with D.fake_group(256):
+        mesh = make_production_mesh(device_type="cpu")
+        with use_mesh(mesh):
+            p = distribute_tree(
+                abstract_params(L.mlp_specs(cfg), "float32"),
+                axes_tree(L.mlp_specs(cfg)), mesh, params=True)
+            x = distribute_tree(torch.empty(B, S, Dm, device="meta"),
+                                ("batch", None, None), mesh)
+            meter = CollectiveMeter()
+            with meter:
+                y = L.apply_mlp(p, cfg, x)
+    assert y.placements == (Shard(0), Replicate())
+    f32 = 4
+    wi_gathered = Dm * 2 * (F // 16) * f32     # (D, 2, F/16) over data
+    wo_gathered = (F // 16) * Dm * f32         # (F/16, D) over data
+    y_local = (B // 16) * S * Dm * f32         # summed over model
+    assert sorted(meter.records) == sorted([
+        ("all-gather", wi_gathered, 16), ("all-gather", wo_gathered, 16),
+        ("all-reduce", y_local, 16)])
+    raw, corr, wire = collective_bytes(meter.records)
+    assert raw == corr == {"all-gather": (wi_gathered + wo_gathered) // 16,
+                           "all-reduce": y_local}
+    assert wire == {"all-gather": int(wi_gathered * 15 / 16)
+                    + int(wo_gathered * 15 / 16),
+                    "all-reduce": int(2 * y_local * 15 / 16)}

@@ -2,7 +2,9 @@
 reference's: with the reference's TPU constants passed in as the rates,
 ``roofline_terms``, ``dominant`` and ``model_flops`` give the reference's
 values exactly on the cases of ``tests/test_hlo_analysis.py``; with no
-rates given they divide by the H100 SXM datasheet's."""
+rates given they divide by the H100 SXM datasheet's. ``collective_bytes``
+over the records of the reference's HLO snippet gives its operand and
+wire bytes."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -45,3 +47,24 @@ def test_h100_rates_by_default():
 @pytest.mark.parametrize("n,tokens", [(1.18e9, 2048.0), (3.7e8, 128.0)])
 def test_model_flops_matches_reference(kind, n, tokens):
     assert H.model_flops(n, tokens, kind) == ref.model_flops(n, tokens, kind)
+
+
+def test_collective_bytes_match_reference_hlo_snippet():
+    """The collectives of the reference's HLO snippet
+    (``tests/test_hlo_analysis.py``) as an eager step issues them: the
+    all-gather of f32[128] over 16 devices once, the all-reduce of f32[8]
+    over 16 devices in each of the loop's 16 trips. The port counts
+    every trip, so its operand bytes are the reference's trip-corrected
+    ones, and so are its wire bytes."""
+    from test_hlo_analysis import HLO
+    records = [("all-gather", 128 * 4, 16)] + [("all-reduce", 8 * 4, 16)] * 16
+    raw, corrected, wire = H.collective_bytes(records)
+    _, ref_corrected, ref_wire = ref.collective_bytes(HLO)
+    assert raw == corrected == ref_corrected
+    assert wire == ref_wire
+    assert H.collective_bytes([("reduce-scatter", 64, 4),
+                               ("all-to-all", 64, 4),
+                               ("collective-permute", 64, 2)]) == (
+        {"reduce-scatter": 256, "all-to-all": 64, "collective-permute": 64},
+        {"reduce-scatter": 256, "all-to-all": 64, "collective-permute": 64},
+        {"reduce-scatter": 192, "all-to-all": 48, "collective-permute": 64})

@@ -123,9 +123,11 @@ def test_constrain_identity_or_refusal():
         assert constrain(x, axes) is x                   # splits nothing
     with use_mesh(tile_mesh(devices=CPU8)):
         assert constrain(x, axes) is x                   # tiles only
+    # a mesh with no process group cannot split a tensor: the DTensor
+    # path (tests/test_torch_dist.py) needs the group's DeviceMesh
     tp = Mesh(["cpu"] * 2, ("data", "model"), {"data": 1, "model": 2})
     with use_mesh(tp):
-        with pytest.raises(NotImplementedError, match="tensor parallelism"):
+        with pytest.raises(ValueError, match="no process group"):
             constrain(x, axes)
         # an indivisible dim replicates: nothing is split
         assert constrain(torch.zeros(8, 3, 4), axes).shape == (8, 3, 4)

@@ -222,7 +222,13 @@ def test_grad_compress_matches_reference():
 
 
 def test_grad_compress_refuses_a_process_group(monkeypatch):
+    """A process group no longer refuses the compression: without an
+    active mesh holding ``axis_name`` the all-reduce is the identity, as
+    the reference's ``pmean`` outside ``shard_map`` is (the all-reduce
+    over 'pod' ranks is held in ``tests/test_torch_dist.py``)."""
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    g = {"w": torch.ones(3)}
-    with pytest.raises(NotImplementedError):
-        grad_compress.compress_decompress(g, grad_compress.init_error(g))
+    g = {"w": torch.tensor([1.0, -2.0, 3.0])}
+    out, err = grad_compress.compress_decompress(
+        g, grad_compress.init_error(g), axis_name="pod")
+    assert torch.equal(out["w"], torch.tensor([2.0, -2.0, 2.0]))
+    assert torch.equal(err["w"], torch.tensor([-1.0, 0.0, 1.0]))
