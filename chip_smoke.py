@@ -211,7 +211,24 @@ each printing one JSON line per record:
              256 or 512 ranks on ``meta``): olmo-1b and mamba2-370m
              ``train_4k`` and ``decode_32k`` at 16×16, olmo-1b ``train_4k``
              at 2×16×16; per-device peak, ``fits``, collective bytes by
-             kind and the dominant term (record ``dist``).
+             kind and the dominant term (record ``dist``). Then, on the
+             same group and mesh, sharded checkpoints (record ``ckpt``):
+             olmo-1b at full width in bf16 with int8 moments (remat
+             "full", batch 8 × 256), 4 steps through
+             ``run_resilient_loop`` with ``Checkpointer(keep=1)`` in a
+             temporary directory and a checkpoint every 2 steps, (a)
+             clean and (b) with a failure injected at step 3, which
+             restores step 2 and must end bit-equal to (a) in every
+             parameter, moment and the step count (deterministic
+             algorithms); (c) that step-2 checkpoint restored onto plain
+             tensors (``shardings`` on ``make_local_mesh``), then steps 2
+             and 3: losses within 2^-7 relative of (a)'s, parameters
+             within ``TRAIN_F32_TOL`` of scale, bit-equality reported.
+             The directory's free bytes are printed first, and under 2.5
+             checkpoints (one is 7.08 GB) the record fails. It reports
+             bytes on disk, each save's snapshot wall and background
+             write wall, each restore's wall and each save's extra peak
+             of allocated memory.
 
 Then the per-kernel summary line ``{"kernels": [...]}`` (``launches`` from
 the serve phase for binary_matmul, splitk_matvec and conv2d_shift, from the
@@ -2223,10 +2240,204 @@ def dist_train(torch, mesh) -> dict:
     return out
 
 
+# the ckpt record: olmo-1b with int8 moments, a checkpoint every 2 steps of
+# 4, a failure injected at step 3; the free disk it needs, in checkpoints
+CKPT_STEPS, CKPT_EVERY, CKPT_FAIL_AT, CKPT_ROOM = 4, 2, 3, 2.5
+
+
+def dist_ckpt(torch, mesh, local) -> dict:
+    """Sharded checkpoints of olmo-1b at full width in bf16 (int8 moments,
+    remat "full", batch 8 × 256) on ``mesh``: (a) ``CKPT_STEPS`` steps
+    through ``run_resilient_loop`` with ``Checkpointer(keep=1)``, a
+    checkpoint every ``CKPT_EVERY``; (b) the same with a failure injected
+    at step ``CKPT_FAIL_AT`` on every rank, which restores step 2 and must
+    end bit-equal to (a) in every parameter, moment and the step count
+    (both under deterministic algorithms); (c) that step-2 checkpoint
+    restored onto plain tensors (``shardings`` on ``local``), then steps 2
+    and 3, within ``TRAIN_LOSS_TOL`` of (a)'s losses and ``TRAIN_F32_TOL``
+    of each parameter's scale (bit-equality reported). The directory must
+    hold ``CKPT_ROOM`` checkpoints free; (a)'s is deleted before (b), so
+    at most two exist at once. Walls of each save's snapshot and
+    background write and of each restore, bytes on disk, each save's extra
+    peak of allocated memory."""
+    import shutil
+    import tempfile
+
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data import SyntheticLM, make_global_batch
+    from repro_torch.distributed.fault_tolerance import run_resilient_loop
+    from repro_torch.distributed.sharding import (NamedSharding,
+                                                  distribute_tree, use_mesh)
+    from repro_torch.models import build_model
+    from repro_torch.models.spec import (axes_tree, init_params, tree_leaves,
+                                         tree_map)
+    from repro_torch.train import make_train_step
+    cfg = get_config("olmo-1b")
+    check((cfg.n_layers, cfg.d_model, cfg.vocab, cfg.dtype) ==
+          (16, 2048, 50304, "bfloat16"), f"ckpt: config {cfg}")
+    model = build_model(cfg)
+    step_fn, opt = make_train_step(model, TrainConfig(
+        lr=1e-3, remat="full", opt_state_dtype="int8"))
+    src = SyntheticLM(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+    torch.cuda.empty_cache()
+    with use_mesh(mesh):
+        params = distribute_tree(init_params(
+            model.specs(), torch.Generator(device="cuda").manual_seed(0),
+            cfg.dtype), axes_tree(model.specs()), mesh, params=True)
+        state = (params, opt.init(params))
+    del params
+    n_leaves = len(tree_leaves(state))
+    wide = (torch.bfloat16, torch.float32)
+    one = sum(t.numel() * (4 if t.dtype in wide else t.element_size())
+              for t in tree_leaves(state))
+    on_plain = tree_map(lambda t: NamedSharding(local, (None,) * t.ndim),
+                        state)
+
+    def local_of(t):
+        return t.to_local() if isinstance(t, DTensor) else t
+
+    def synced():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    class Probe(Checkpointer):
+        """Times each save's snapshot (with its extra peak of allocated
+        memory) and background write, and each restore; on its first
+        restore also restores the same step onto plain tensors (c)."""
+
+        def __init__(self, directory):
+            super().__init__(directory, keep=1)
+            self.saves, self.writes, self.restores = [], [], []
+            self.plain = None
+
+        def save(self, step, tree, extra=None, block=False):
+            self.wait()                 # the previous write, untimed
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = synced()
+            super().save(step, tree, extra, block)
+            self.saves.append({
+                "step": step, "snapshot_s": time.perf_counter() - t0,
+                "extra_peak_bytes": torch.cuda.max_memory_allocated()
+                - before})
+
+        def wait(self):
+            super().wait()
+            if self.write_s is not None:
+                self.writes.append(self.write_s)
+                self.write_s = None
+
+        def restore(self, like, step=None, shardings=None):
+            t0 = synced()
+            out = super().restore(like, step, shardings)
+            self.restores.append({"step": step, "onto": "mesh",
+                                  "s": synced() - t0})
+            if self.plain is None:
+                t0 = synced()
+                self.plain = super().restore(like, step, on_plain)[0]
+                self.restores.append({"step": step, "onto": "plain",
+                                      "s": synced() - t0})
+            return out
+
+    def batch_at(i, on=mesh):
+        return make_global_batch(src.at_step(i), on, cfg.dtype)
+
+    def run(directory, fail_at):
+        ck, losses = Probe(directory), {}
+        with deterministic(torch), use_mesh(mesh):
+            out = run_resilient_loop(
+                step_fn, state, batch_at, ck, n_steps=CKPT_STEPS,
+                ckpt_every=CKPT_EVERY, fail_at=fail_at,
+                on_metrics=lambda s, m: losses.__setitem__(
+                    s, float(m["loss"])))
+        return out, [losses[s] for s in sorted(losses)], ck
+
+    t_start = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="repro_torch_ckpt_")
+    try:
+        free = shutil.disk_usage(tmp).free
+        print(f"ckpt: {free} bytes free in {tmp}; one checkpoint is {one} "
+              f"bytes", flush=True)
+        check(free >= CKPT_ROOM * one,
+              f"ckpt: {free} bytes free in {tmp}, under {CKPT_ROOM} "
+              f"checkpoints of {one} bytes: point TMPDIR at a larger disk")
+        clean, clean_losses, ck_a = run(os.path.join(tmp, "clean"), None)
+        d = os.path.join(ck_a.dir, f"step_{CKPT_STEPS}")
+        disk = sum(os.path.getsize(os.path.join(d, f))
+                   for f in os.listdir(d))
+        check(ck_a.steps() == [CKPT_STEPS] and len(os.listdir(d)) ==
+              n_leaves + 1, f"ckpt: {ck_a.steps()} kept")
+        shutil.rmtree(ck_a.dir)
+        faulty, faulty_losses, ck_b = run(
+            os.path.join(tmp, "faulty"),
+            {CKPT_FAIL_AT: RuntimeError("injected at step 3")})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check([r["step"] for r in ck_b.restores if r["onto"] == "mesh"] == [2],
+          f"ckpt: restores {ck_b.restores}")
+    differ = [i for i, (a, b) in enumerate(zip(tree_leaves(clean),
+                                               tree_leaves(faulty)))
+              if not torch.equal(local_of(a), local_of(b))
+              or type(a) is not type(b)
+              or getattr(a, "placements", None)
+              != getattr(b, "placements", None)]
+    check(not differ, f"ckpt: the resumed run differs from the clean one at "
+          f"leaves {differ}")
+    check(faulty_losses == clean_losses,
+          f"ckpt: losses {faulty_losses} against {clean_losses}")
+    # (c): steps 2 and 3 on plain tensors from the sharded step-2 checkpoint
+    p_state, plain_losses = ck_b.plain, []
+    check(not any(isinstance(t, DTensor) for t in tree_leaves(p_state)),
+          "ckpt: the restore onto plain tensors gave DTensors")
+    with deterministic(torch), use_mesh(local):
+        for i in range(CKPT_FAIL_AT - 1, CKPT_STEPS):
+            *p_state, m = step_fn(*p_state, batch_at(i, local))
+            plain_losses.append(float(m["loss"]))
+    check(all(abs(a - b) <= TRAIN_LOSS_TOL * abs(b) for a, b in
+              zip(plain_losses, clean_losses[CKPT_FAIL_AT - 1:])),
+          f"ckpt: plain losses {plain_losses} against {clean_losses}")
+    worst = 0.0
+    for a, b in zip(tree_leaves(p_state[0]), tree_leaves(clean[0])):
+        b = local_of(b)
+        diff = float((a.float() - b.float()).abs().max())
+        scale = max(1.0, float(b.float().abs().max()))
+        check(diff <= TRAIN_F32_TOL * scale,
+              f"ckpt: a parameter restored onto plain tensors moved {diff} "
+              f"at scale {scale}")
+        worst = max(worst, diff)
+    bit_equal = all(torch.equal(a, local_of(b)) for a, b in zip(
+        tree_leaves(p_state), tree_leaves(clean)))
+    wall = time.perf_counter() - t_start
+    del clean, faulty, p_state, state
+    ck_b.plain = None
+    torch.cuda.empty_cache()
+    return {"arch": "olmo-1b", "dtype": "bfloat16", "opt_dtype": "int8",
+            "remat": "full", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "steps": CKPT_STEPS, "ckpt_every": CKPT_EVERY, "keep": 1,
+            "fail_at": CKPT_FAIL_AT, "leaves": n_leaves,
+            "checkpoint_bytes": one, "disk_bytes": disk,
+            "free_bytes_before": free, "room_needed": CKPT_ROOM,
+            "losses": clean_losses, "resumed_bit_equal": True,
+            "restored_step": 2, "saves": {"clean": ck_a.saves,
+                                          "faulty": ck_b.saves},
+            "writes_s": {"clean": ck_a.writes, "faulty": ck_b.writes},
+            "restores": ck_b.restores,
+            "plain": {"losses": plain_losses, "loss_tol": TRAIN_LOSS_TOL,
+                      "param_tol": TRAIN_F32_TOL,
+                      "param_max_abs_diff": worst,
+                      "state_bit_equal": bit_equal},
+            "wall_s": wall}
+
+
 def phase_dist(torch, card: str) -> None:
     """Sharded steps on a one-rank NCCL group against plain tensors, and
-    the sharded dry run in spawned workers meanwhile (record ``dist``).
-    Any failed check raises; the group is torn down either way."""
+    the sharded dry run in spawned workers meanwhile (record ``dist``);
+    then sharded checkpoints on the same group (record ``ckpt``,
+    :func:`dist_ckpt`). Any failed check raises; the group is torn down
+    either way."""
     import functools
     import multiprocessing
     import tempfile
@@ -2261,6 +2472,7 @@ def phase_dist(torch, card: str) -> None:
             train_meter = CollectiveMeter()
             with train_meter:
                 sharded_train = dist_train(torch, mesh)
+            ckpt = dist_ckpt(torch, mesh, local)
         finally:
             dist.destroy_process_group()
         card_s = time.perf_counter() - t0
@@ -2330,6 +2542,8 @@ def phase_dist(torch, card: str) -> None:
                   "dominant": r["dominant"], "cell_wall_s": r["wall_s"]}
                  for r in cells],
          card_work_s=card_s, wall_s=wall)
+    emit("ckpt", card=card, process_group="nccl, 1 rank",
+         mesh={"data": 1, "model": 1}, **ckpt)
 
 
 def phase_train(torch, card: str) -> None:

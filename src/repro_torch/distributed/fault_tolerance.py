@@ -87,7 +87,13 @@ def run_resilient_loop(
     ``state`` = (params, opt_state). ``fail_at`` injects failures for tests:
     {step: exception}. On failure: restore the latest checkpoint, take its
     step, resume (deterministic batches make this exact). With
-    ``checkpointer=None`` nothing is saved and a failure propagates.
+    ``checkpointer=None`` nothing is saved and a failure propagates. The
+    final state is saved at ``n_steps`` unless the cadence just saved it.
+
+    On a mesh every rank runs the loop alike: an injected failure fires on
+    every rank at its step, and the checkpointer's collective ``wait``,
+    ``latest_step`` and ``restore`` bring every rank back to the same step,
+    each leaf in its own placements.
     """
     straggler = StragglerDetector()
     # injection bookkeeping pops entries as they fire; work on a copy so a
@@ -95,6 +101,7 @@ def run_resilient_loop(
     # next run instead of a silent clean pass
     fail_at = dict(fail_at) if fail_at else fail_at
     step = start_step
+    saved = None
     while step < n_steps:
         try:
             if fail_at and step in fail_at:
@@ -114,6 +121,7 @@ def run_resilient_loop(
             step += 1
             if checkpointer is not None and step % ckpt_every == 0:
                 checkpointer.save(step, state)
+                saved = step
         except Exception:  # noqa: BLE001 — any failure: restore + resume
             if checkpointer is None:
                 raise
@@ -123,7 +131,9 @@ def run_resilient_loop(
                 raise
             state, manifest = checkpointer.restore(state, last)
             step = manifest["step"]
-    if checkpointer is not None:
+    if checkpointer is not None and saved == n_steps:
+        checkpointer.wait()
+    elif checkpointer is not None:
         checkpointer.save(n_steps, state, block=True)
     return state
 

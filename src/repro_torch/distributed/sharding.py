@@ -130,20 +130,41 @@ _ctx = threading.local()
 @contextlib.contextmanager
 def use_mesh(mesh: Optional[Mesh], rules: Optional[dict] = None):
     """Activate a mesh (+ optional rule overrides) for this thread's
-    :func:`constrain` and ``engine.execute`` calls."""
+    :func:`constrain` and ``engine.execute`` calls. It nests: leaving it
+    restores the enclosing mesh, rules and implicit replication."""
     prev = getattr(_ctx, "state", None)
     _ctx.state = (mesh, {**RULES, **(rules or {})})
     dtensors = getattr(mesh, "device_mesh", None) is not None
     try:
-        with implicit_replication() if dtensors else contextlib.nullcontext():
+        with _implicit_replication() if dtensors else contextlib.nullcontext():
             yield
     finally:
         _ctx.state = prev
 
 
+@contextlib.contextmanager
+def _implicit_replication():
+    """``implicit_replication()`` that leaves the flag as it found it
+    (torch's clears it on exit, ending an enclosing one)."""
+    dispatcher = DTensor._op_dispatcher
+    prev = dispatcher._allow_implicit_replication
+    try:
+        with implicit_replication():
+            yield
+    finally:
+        dispatcher._allow_implicit_replication = prev
+
+
 def current_mesh() -> Optional[Mesh]:
     st = getattr(_ctx, "state", None)
     return st[0] if st else None
+
+
+def current_rules() -> dict:
+    """The rules :func:`use_mesh` made active on this thread (``RULES``
+    and its overrides), else ``RULES``."""
+    st = getattr(_ctx, "state", None)
+    return st[1] if st else RULES
 
 
 def _mesh_axis_size(mesh, axis) -> int:
@@ -426,7 +447,7 @@ def distribute_tree(tree, axes_tree, mesh: Optional[Mesh] = None,
 
 
 __all__ = ["Mesh", "NamedSharding", "PARAM_RULES", "RULES", "as_dtensor",
-           "constrain", "contiguous_strides",
-           "current_mesh", "distribute", "distribute_tree", "dtensor_zeros",
+           "constrain", "contiguous_strides", "current_mesh", "current_rules",
+           "distribute", "distribute_tree", "dtensor_zeros",
            "named_sharding", "placements", "redistribute", "resolve_spec",
            "shard_offset", "tree_shardings", "use_mesh", "write_block"]

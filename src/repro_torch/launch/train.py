@@ -11,7 +11,8 @@ sharded over a mesh of every rank (``launch.mesh.mesh_from_env``);
 otherwise the run takes one device, where the reference takes its
 production mesh. The weights are random, drawn from a ``torch.Generator`` seeded with 0 on the
 training device; the batches are ``SyntheticLM``'s. The loop runs under
-the fault-tolerance supervisor: checkpoint cadence, crash recovery,
+the fault-tolerance supervisor: checkpoint cadence (on a sharded run
+rank 0 writes every leaf whole, in the one-device layout), crash recovery,
 straggler flagging. It prints the reference's lines: ``step … loss …
 gnorm … s/step`` every 5 steps and at the last, then ``done.``.
 """
@@ -94,16 +95,12 @@ def train(arch: str = "olmo-1b", smoke: bool = False, steps: int = 20,
     of allocated memory, and the peak over the whole run (set-up
     included). ``ckpt_dir=None`` takes no checkpoints; ``log`` gets the
     printed lines. ``mesh`` (default: ``mesh_from_env``) places the
-    parameters, moments and batches; checkpoints of a run sharded over a
-    process group are not written (the checkpointer holds whole tensors),
-    so such a run takes ``ckpt_dir=None``."""
+    parameters, moments and batches; a run sharded over a process group
+    writes its checkpoints from rank 0, in the one-device layout."""
     cfg = get_config(arch)
     if smoke:
         cfg = cfg.reduced()
     mesh = mesh if mesh is not None else mesh_from_env(device)
-    if mesh.device_mesh is not None and ckpt_dir is not None:
-        raise ValueError("checkpoints of a sharded run are not written: "
-                         "pass ckpt_dir=None (--ckpt-dir '')")
     dev = mesh.local_device
     on_card = dev.type == "cuda"
     tc = TrainConfig(lr=lr, microbatches=microbatches, remat=remat,

@@ -32,7 +32,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..configs.base import ModelConfig
 from ..core.engine import resolve_device
-from ..distributed.sharding import constrain
+from ..distributed.sharding import (constrain, current_mesh, current_rules,
+                                     use_mesh)
 from ..distributed.spmd import einsum, reshape
 from . import layers as L
 from . import mamba as M
@@ -244,12 +245,21 @@ class Model(torch.nn.Module):
 
     def _checkpoint(self, body, x):
         """``body(x)``, a group's hidden state to the next, checkpointed
-        under the model's policy."""
+        under the model's policy. The recompute runs in the backward, on
+        the autograd engine's thread for the card's tensors, where this
+        thread's ``use_mesh`` is not active: it re-enters the mesh and
+        rules active now, or DTensor places its operands otherwise than
+        the forward did."""
         kw = {}
         if self.remat == "dots":
             kw["context_fn"] = functools.partial(
                 create_selective_checkpoint_contexts, _dots_policy)
-        return checkpoint(body, x, use_reentrant=False, **kw)
+        mesh, rules = current_mesh(), current_rules()
+
+        def run(h):
+            with use_mesh(mesh, rules):
+                return body(h)
+        return checkpoint(run, x, use_reentrant=False, **kw)
 
     def _groups(self, params, x, pos, positions3, cache=None,
                 cross_kv=None):
