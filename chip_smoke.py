@@ -228,7 +228,23 @@ each printing one JSON line per record:
              checkpoints (one is 7.08 GB) the record fails. It reports
              bytes on disk, each save's snapshot wall and background
              write wall, each restore's wall and each save's extra peak
-             of allocated memory.
+             of allocated memory. Last, the record ``dist``'s entry
+             ``split_reductions``: ``spmd.block_softmax`` and
+             ``spmd.block_logsumexp`` (the bodies ``spmd.softmax`` and
+             ``spmd.logsumexp`` run on each rank's block of a split axis)
+             on olmo-1b's decode logits at the ``dist`` serving's shape
+             (4 slots × 16 KV heads × 1 × 1 × 128 positions, masked to
+             ``-1e30`` past position 23, so three of the four blocks are
+             wholly masked) and on full-width loss logits (8 × 256 ×
+             50304), float32, each cut into 4 blocks along the reduced
+             axis with ``amax``/``sum`` over the blocks standing in for
+             the all-reduces: values and gradients no further from a
+             float64 run of the whole than ``torch.softmax`` /
+             ``torch.logsumexp``'s float32 is, plus ``SPLIT_TOL`` (1e-6)
+             of scale, and within ``SPLIT_TORCH_TOL`` (3e-5) of scale of
+             torch's float32; and ``spmd.softmax`` /
+             ``spmd.logsumexp`` on DTensors of the 1×1 mesh (no axis to
+             reduce over: torch's own function on the shard), bit-equal.
 
 Then the per-kernel summary line ``{"kernels": [...]}`` (``launches`` from
 the serve phase for binary_matmul, splitk_matvec and conv2d_shift, from the
@@ -2432,6 +2448,88 @@ def dist_ckpt(torch, mesh, local) -> dict:
             "wall_s": wall}
 
 
+# split_reductions: the float32 values and gradients of the blocked
+# softmax and logsumexp no further from a float64 run of the whole than
+# torch's float32 function of the whole is, plus SPLIT_TOL of scale (the
+# tests' limit), and within SPLIT_TORCH_TOL of scale of torch's float32
+# (torch sums the 50304 terms of a loss row in another order, and on some
+# devices further from float64 than the blocks do); the blocks of the
+# reduced axis; the decode position
+SPLIT_TOL, SPLIT_TORCH_TOL, SPLIT_BLOCKS, SPLIT_POS = 1e-6, 3e-5, 4, 23
+
+
+def split_reductions(torch, mesh) -> dict:
+    """The softmax and logsumexp of a split axis on the card, cut into
+    ``SPLIT_BLOCKS`` blocks (the ``split_reductions`` entry of record
+    ``dist``): values and gradients against a float64 run and torch's
+    float32 function of the whole. Raises on a miss."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import spmd
+    cfg = get_config("olmo-1b")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    kv, rep = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    decode = torch.randn((4, kv, rep, 1, 128), device="cuda",
+                         generator=gen) * 4
+    decode[..., SPLIT_POS + 1:] = -1e30
+    loss = torch.randn((TRAIN_BATCH, TRAIN_SEQ, cfg.vocab), device="cuda",
+                       generator=gen) * 4
+
+    def across_blocks(t, op):
+        # the blocks on axis -2 stand in for the ranks of an all-reduce
+        return t.amax(-2, keepdim=True) if op == "max" \
+            else t.sum(-2, keepdim=True)
+
+    def blocked(fn, x):
+        blocks = x.unflatten(-1, (SPLIT_BLOCKS, -1))
+        if fn == "softmax":
+            return spmd.block_softmax(blocks, -1, across_blocks).flatten(-2)
+        return spmd.block_logsumexp(blocks, -1, across_blocks).squeeze(-1)
+
+    def value_and_grad(f, x, g):
+        x = x.detach().requires_grad_()
+        y = f(x)
+        (gx,) = torch.autograd.grad(y, x, g.to(x.dtype))
+        return y.detach(), gx
+
+    def err(a, b):
+        b = b.double()
+        return float((a.double() - b).abs().max()) / max(
+            1.0, float(b.abs().max()))
+
+    out = {"limit_f64": SPLIT_TOL, "limit_torch": SPLIT_TORCH_TOL,
+           "blocks": SPLIT_BLOCKS, "decode_position": SPLIT_POS}
+    for name, x in (("decode_logits", decode), ("loss_logits", loss)):
+        for fn in ("softmax", "logsumexp"):
+            plain = getattr(torch, fn)
+            g = torch.randn(plain(x, -1).shape, device="cuda", generator=gen)
+            got = value_and_grad(lambda t: blocked(fn, t), x, g)
+            f32 = value_and_grad(lambda t: plain(t, -1), x, g)
+            f64 = value_and_grad(lambda t: plain(t, -1), x.double(), g)
+            row = {"shape": list(x.shape)}
+            for i, part in enumerate(("value", "grad")):
+                row[f"{part}_err_f64"] = err(got[i], f64[i])
+                row[f"{part}_err_torch"] = err(got[i], f32[i])
+                row[f"torch_{part}_err_f64"] = err(f32[i], f64[i])
+                check(row[f"{part}_err_f64"]
+                      <= row[f"torch_{part}_err_f64"] + SPLIT_TOL
+                      and row[f"{part}_err_torch"] <= SPLIT_TORCH_TOL,
+                      f"blocked {fn} of {name}: {row}")
+            dt = DTensor.from_local(x, mesh.device_mesh,
+                                    [Replicate(), Shard(x.ndim - 1)],
+                                    run_check=False)
+            row["mesh_1x1_bit_equal"] = bool(torch.equal(
+                getattr(spmd, fn)(dt, -1).to_local(), f32[0]))
+            check(row["mesh_1x1_bit_equal"],
+                  f"spmd.{fn} on the 1x1 mesh differs from torch's")
+            out[f"{name}_{fn}"] = row
+            del got, f32, f64, dt
+    del decode, loss
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_dist(torch, card: str) -> None:
     """Sharded steps on a one-rank NCCL group against plain tensors, and
     the sharded dry run in spawned workers meanwhile (record ``dist``);
@@ -2473,6 +2571,7 @@ def phase_dist(torch, card: str) -> None:
             with train_meter:
                 sharded_train = dist_train(torch, mesh)
             ckpt = dist_ckpt(torch, mesh, local)
+            split = split_reductions(torch, mesh)
         finally:
             dist.destroy_process_group()
         card_s = time.perf_counter() - t0
@@ -2541,7 +2640,7 @@ def phase_dist(torch, card: str) -> None:
                   "collective_s": r["roofline"]["collective_s"],
                   "dominant": r["dominant"], "cell_wall_s": r["wall_s"]}
                  for r in cells],
-         card_work_s=card_s, wall_s=wall)
+         split_reductions=split, card_work_s=card_s, wall_s=wall)
     emit("ckpt", card=card, process_group="nccl, 1 rank",
          mesh={"data": 1, "model": 1}, **ckpt)
 

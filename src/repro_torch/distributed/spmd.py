@@ -25,11 +25,21 @@ local shards, and the output is split on the letter, ``Partial`` where
 the letter is contracted. :func:`reshape` replicates, over the mesh axes
 concerned, a split that would not survive the reshape whole. On plain
 tensors both are ``torch.einsum`` and ``Tensor.reshape``.
+
+:func:`softmax` and :func:`logsumexp` reduce over a split axis as XLA's
+SPMD partitioner lowers ``jax.nn.softmax`` and ``jax.nn.logsumexp``: each
+rank takes its block's maximum, an all-reduce (MAX) makes it global, each
+rank sums the exponentials of its shifted block, and an all-reduce (SUM)
+adds the sums; the axis is never gathered. So a split-K decode step
+reduces the (B, KV, rep, 1, 1) maximum and sum of its logits, then the
+``Partial`` output of its second product (the paper's α-block split with
+a logarithmic reduction, at mesh level), and the loss's ``logz`` over a
+split vocab is vocab-parallel.
 """
 from __future__ import annotations
 
 import math
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
@@ -160,4 +170,138 @@ def cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
                      device_mesh=x.device_mesh)(redistribute(x, pl))
 
 
-__all__ = ["cumsum", "einsum", "reshape"]
+def _stats(x: torch.Tensor, dim: int, reduce: Callable):
+    """(max, exp(x - max), sum) of ``x`` over ``dim``, where ``x`` is one
+    block of the axis and ``reduce(t, op)`` combines a block's statistic
+    (``op`` "max" or "sum", ``t`` keeping ``dim`` at size 1) with every
+    other block's. The max carries no gradient, and an infinite one
+    shifts by 0, as in torch's ``logsumexp``."""
+    m = reduce(x.detach().amax(dim, keepdim=True), "max")
+    m = torch.where(torch.isinf(m), torch.zeros((), dtype=m.dtype,
+                                                device=m.device), m)
+    e = torch.exp(x - m)
+    return m, e, reduce(e.sum(dim, keepdim=True), "sum")
+
+
+class _BlockSoftmax(torch.autograd.Function):
+    """Softmax of one block with torch's gradient, ``w·(g - Σ g·w)``: the
+    sum over the whole axis is one more ``reduce(·, "sum")``."""
+
+    @staticmethod
+    def forward(ctx, x, dim, reduce):
+        _, e, s = _stats(x, dim, reduce)
+        w = e / s
+        ctx.save_for_backward(w)
+        ctx.dim, ctx.reduce = dim, reduce
+        return w
+
+    @staticmethod
+    def backward(ctx, g):
+        (w,) = ctx.saved_tensors
+        gw = ctx.reduce((g * w).sum(ctx.dim, keepdim=True), "sum")
+        return w * (g - gw), None, None
+
+
+class _BlockLogsumexp(torch.autograd.Function):
+    """Logsumexp of one block with torch's gradient, ``g·exp(x - lse)``:
+    local to each block."""
+
+    @staticmethod
+    def forward(ctx, x, dim, reduce):
+        m, _, s = _stats(x, dim, reduce)
+        lse = (torch.log(s) + m).squeeze(dim)
+        ctx.save_for_backward(x, lse)
+        ctx.dim = dim
+        return lse
+
+    @staticmethod
+    def backward(ctx, g):
+        x, lse = ctx.saved_tensors
+        return (g.unsqueeze(ctx.dim)
+                * torch.exp(x - lse.unsqueeze(ctx.dim))), None, None
+
+
+def block_softmax(x: torch.Tensor, dim: int, reduce: Callable):
+    """``torch.softmax`` over the whole axis ``dim``, of which ``x`` is one
+    block, and its gradient; ``reduce`` as in :func:`_stats`. A block
+    wholly at ``-1e30`` beside a larger one gives exact zeros."""
+    return _BlockSoftmax.apply(x, dim, reduce)
+
+
+def block_logsumexp(x: torch.Tensor, dim: int, reduce: Callable):
+    """``torch.logsumexp`` over the whole axis ``dim``, of which ``x`` is
+    one block (``dim`` dropped), and its gradient; ``reduce`` as in
+    :func:`_stats`."""
+    return _BlockLogsumexp.apply(x, dim, reduce)
+
+
+def _all_reduce(device_mesh, axes: List[int]) -> Callable:
+    """``reduce(t, op)``: one functional all-reduce of ``t`` with ``op``
+    over each mesh axis in ``axes``."""
+    import torch.distributed._functional_collectives as funcol
+
+    def reduce(t, op):
+        for m in axes:
+            t = funcol.all_reduce(t, op, (device_mesh, m))
+            if isinstance(t, funcol.AsyncCollectiveTensor):
+                t = t.wait()
+        return t
+    return reduce
+
+
+def _over_axis(x: DTensor, dim: int, split_fn, plain_fn, keep: bool):
+    """``x`` reduced over ``dim`` on each rank's shard (a ``local_map``):
+    through ``split_fn`` and :func:`_all_reduce` over the mesh axes of
+    size > 1 that split ``dim``, else ``plain_fn`` on the shard. Every
+    other placement of ``x`` is kept; ``dim`` too where ``keep``."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    # a pending sum is reduced first
+    pl = tuple(Replicate() if isinstance(p, Partial) else p
+               for p in x.placements)
+    x = redistribute(x, pl)
+    axes = [m for m, p in enumerate(pl) if isinstance(p, Shard)
+            and p.dim == dim and mesh.size(m) > 1]
+    if keep:
+        out_pl = pl
+    else:
+        out_pl = tuple(p if not isinstance(p, Shard) or p.dim < dim
+                       else Replicate() if p.dim == dim
+                       else Shard(p.dim - 1) for p in pl)
+    if axes:
+        reduce = _all_reduce(mesh, axes)
+
+        def body(t):
+            return split_fn(t, dim, reduce)
+    else:
+        def body(t):
+            return plain_fn(t, dim)
+    return local_map(body, out_placements=list(out_pl), in_placements=(pl,),
+                     device_mesh=mesh)(x)
+
+
+def softmax(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``torch.softmax(x, dim)``. A DTensor keeps its placements: where
+    mesh axes of size > 1 split ``dim``, each rank's block is normalised
+    by the global maximum and sum (two all-reduces over those axes, MAX
+    then SUM, of the statistic's shape; the backward one more SUM), and
+    the axis is never gathered; else torch's softmax runs on each shard."""
+    if not isinstance(x, DTensor):
+        return torch.softmax(x, dim)
+    return _over_axis(x, dim % x.ndim, block_softmax, torch.softmax,
+                      keep=True)
+
+
+def logsumexp(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``torch.logsumexp(x, dim)``. A DTensor's result drops ``dim`` and
+    keeps every other placement: where mesh axes of size > 1 split
+    ``dim``, from each block's maximum and sum of exponentials (two
+    all-reduces over those axes, MAX then SUM; the backward is local),
+    never gathering the axis; else torch's logsumexp on each shard."""
+    if not isinstance(x, DTensor):
+        return torch.logsumexp(x, dim)
+    return _over_axis(x, dim % x.ndim, block_logsumexp,
+                      torch.logsumexp, keep=False)
+
+
+__all__ = ["cumsum", "einsum", "logsumexp", "reshape", "softmax"]

@@ -9,7 +9,12 @@ bfloat16. A float64 model computes in float64 where the reference takes
 float32 (:func:`.spec.wide`), as a precision reference. Parameter *specs*
 (shape + logical sharding axes) are built by the ``*_specs`` functions; see
 :mod:`.spec`. Activation constraints use logical names resolved in
-:mod:`repro_torch.distributed.sharding`.
+:mod:`repro_torch.distributed.sharding`. On a process-group mesh the
+attention softmax over a split axis (a decode cache split on
+'cache_seq') reduces each rank's partial maximum and sum and never
+gathers the logits (:func:`repro_torch.distributed.spmd.softmax`); the
+MoE router's softmax gathers its experts axis, which ``topk`` needs
+whole.
 """
 from __future__ import annotations
 
@@ -24,7 +29,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from ..configs.base import ModelConfig
 from ..distributed.sharding import (as_dtensor, constrain, redistribute,
                                     shard_offset)
-from ..distributed.spmd import einsum, reshape
+from ..distributed.spmd import einsum, reshape, softmax
 from .spec import Spec, wide
 
 
@@ -137,6 +142,12 @@ def _sdpa(q, k, v, mask, cfg: ModelConfig):
     ``1/sqrt(hd)``, masked to ``-1e30``, a float32 softmax and a float32
     weighted sum, cast back to q's dtype (float64 throughout for a float64
     model, :func:`~repro_torch.models.spec.wide`).
+
+    On a decode cache split over its sequence ('cache_seq'), the logits
+    stay split: the softmax reduces each rank's maximum and sum
+    (:func:`~repro_torch.distributed.spmd.softmax`), and the weighted sum
+    is a ``Partial`` sum over the ranks, reduced once (the reference's
+    partial sums and tree reduction).
     """
     acc = wide(q.dtype)
     B, Sq, H, hd = q.shape
@@ -147,7 +158,7 @@ def _sdpa(q, k, v, mask, cfg: ModelConfig):
     logits = logits / math.sqrt(hd)
     if mask is not None:
         logits = logits.masked_fill(~mask[:, None, None, :, :], -1e30)
-    w = torch.softmax(logits, dim=-1)
+    w = softmax(logits, dim=-1)
     out = einsum("bkrqs,bskh->bqkrh", w, v.to(acc))
     return reshape(out, B, Sq, H, hd).to(q.dtype)
 
@@ -347,6 +358,7 @@ def apply_moe(p, cfg: ModelConfig, x):
     xt = reshape(x, G, Tg, D)
     xt = constrain(xt, ("batch", None, None))
     logits = einsum("gtd,de->gte", xt.to(acc), p["router"].to(acc))
+    # torch's softmax: topk below needs the whole experts axis anyway
     gates = torch.softmax(logits, dim=-1)
     topg, topi = torch.topk(gates, k, dim=-1)                 # (G, Tg, k)
     topg = topg / torch.clamp(topg.sum(-1, keepdim=True), min=1e-9)

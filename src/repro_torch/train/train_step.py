@@ -14,7 +14,8 @@ On DTensor parameters (a process-group mesh) each gradient is
 redistributed to its parameter's placements as it leaves autograd: a
 ``Partial`` sum over 'data' becomes the data-parallel all-reduce, or the
 reduce-scatter of an FSDP-sharded parameter. The gradient norm sums each
-rank's shards once.
+rank's shards once. The loss over a vocab split across 'model' is
+vocab-parallel (:func:`xent_loss`): no rank holds a whole row of logits.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..configs.base import TrainConfig
 from ..distributed.sharding import as_dtensor, redistribute, shard_offset
-from ..distributed.spmd import reshape
+from ..distributed.spmd import logsumexp, reshape
 from ..models.lm import Model
 from ..models.spec import tree_leaves, tree_map, tree_unflatten, wide
 from ..optim.optimizer import make_optimizer
@@ -35,8 +36,12 @@ F32 = torch.float32
 
 def xent_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Mean token cross-entropy; logits (B,S,V) float32 (float64 for a
-    float64 model), targets (B,S) integer."""
-    logz = torch.logsumexp(logits, dim=-1)
+    float64 model), targets (B,S) integer. On logits whose vocab is split
+    over mesh axes it is vocab-parallel (Megatron's cross-entropy): ``logz``
+    from each rank's maximum and sum (:func:`.spmd.logsumexp`) and the
+    target's logit from each rank's block (:func:`_gold_sharded`), never
+    gathering the vocab."""
+    logz = logsumexp(logits, dim=-1)
     if isinstance(logits, DTensor):
         gold = _gold_sharded(logits, targets)
     else:

@@ -44,7 +44,17 @@ FSDP of 'embed' over 'data') on the reference's own parameters
 * the launchers' ``serve`` and ``train`` on the mesh serve the one-device
   run's tokens and train to its losses (reduced olmo-1b at its own
   bfloat16: within 1e-2 relative, the bfloat16 bound of
-  ``tests/test_torch_train.py``; measured 1.7e-3).
+  ``tests/test_torch_train.py``; measured 1.7e-3);
+* ``spmd.softmax`` and ``spmd.logsumexp`` with the reduced axis split
+  over 'model', over both mesh axes and over neither: values and
+  gradients within 1e-6 of scale of torch's function on the whole tensor
+  in float32 and 1e-12 in float64 (a few ulps of the sums; a row's first
+  blocks at ``-1e30``), the split axis never gathered;
+* ``launch.serve_mesh.compare`` on a (data=1, model=4) mesh serves the
+  one-device run's tokens;
+* a sharded decode step of reduced olmo-1b gathers no logits and reduces
+  their (B/2, KV, rep, 1, 1) maximum and sum, two all-reduces a layer; a
+  sharded train step gathers no vocab-sized logits.
 """
 import os
 import pickle
@@ -71,6 +81,15 @@ TRAIN = {"float32": dict(remat="full", opt_state_dtype="float32",
          "int8": dict(remat="none", opt_state_dtype="int8",
                       microbatches=2)}
 COMPRESS_SHAPES = {"w": (8, 16), "b": (16,), "e": (2, 3, 8)}
+# spmd.softmax / logsumexp cases on the 2x2 ("data", "model") mesh: the
+# placements of a (4, 6, 8) tensor and the dim reduced over
+SPLIT_SHAPE = (4, 6, 8)
+SPLITS = {"model": (("S0", "S2"), 2), "both": (("S2", "S2"), 2),
+          "none": (("S0", "S1"), 2), "model_mid": (("R", "S1"), 1)}
+SPLIT_TOL = {"float32": 1e-6, "float64": 1e-12}
+# the cache length of the metered decode step: its logits' block (B/2, KV,
+# rep, 1, METER_SEQ/2) differs in size from the gathered query
+METER_SEQ = 40
 TIME_LIMIT_S = 600
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "..", "src")
@@ -112,6 +131,8 @@ def _run_model(arch, case, mesh=None):
     specs = model.specs()
     out = {}
     ctx = use_mesh(mesh) if mesh is not None else contextlib.nullcontext()
+    train_meter = _axis_meter(mesh) if mesh is not None \
+        else contextlib.nullcontext()
     with ctx:
         def place(tree, axes, params=False):
             return (distribute_tree(tree, axes, mesh, params=params)
@@ -147,9 +168,13 @@ def _run_model(arch, case, mesh=None):
             out["decode_logits"] = np.stack(steps)
             out["decode_tokens"] = np.stack(toks)
         tb = batch_of(case["train_batch"])
-        _, grads = make_grad_fn(model, TrainConfig(**TRAIN["float32"]))(
-            params, tb)
+        with train_meter:
+            _, grads = make_grad_fn(model, TrainConfig(**TRAIN["float32"]))(
+                params, tb)
         out["grads"] = [_full(g) for g in tree_leaves(grads)]
+        out["train_collectives"] = [
+            rec + (train_meter.axes.get(i),)
+            for i, rec in enumerate(getattr(train_meter, "records", []))]
         for name, kw in TRAIN.items():
             step, opt = make_train_step(model, TrainConfig(**kw))
             new, _, m = step(params, opt.init(params), tb)
@@ -159,10 +184,112 @@ def _run_model(arch, case, mesh=None):
     return out
 
 
+def _axis_meter(mesh):
+    """A ``CollectiveMeter`` whose ``axes`` maps a record's index to the
+    mesh axis its functional collective runs over (by group name): a
+    gather over 'data' and one over 'model' of equal blocks have equal
+    bytes and group sizes on the 2×2 mesh."""
+    from repro_torch.launch.hlo_analysis import CollectiveMeter
+    dm = mesh.device_mesh
+    names = {dm.get_group(a).group_name: a for a in dm.mesh_dim_names}
+
+    class AxisMeter(CollectiveMeter):
+        def __init__(self):
+            super().__init__()
+            self.axes = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            n = len(self.records)
+            out = super().__torch_dispatch__(func, types, args, kwargs)
+            if len(self.records) > n:
+                self.axes[n] = next((names[a] for a in args[1:]
+                                     if isinstance(a, str) and a in names),
+                                    None)
+            return out
+    return AxisMeter()
+
+
 def _compress_grads(pod, step):
     rng = np.random.default_rng((pod, step))
     return {k: rng.standard_normal(s).astype(np.float32)
             for k, s in COMPRESS_SHAPES.items()}
+
+
+def _metered_decode(mesh, params_np):
+    """The collectives of one decode step of reduced olmo-1b on
+    ``mesh``, at position 5 of a cache of ``METER_SEQ`` placed by
+    ``cache_axes`` (its sequence over 'model')."""
+    from repro_torch.distributed.sharding import distribute_tree, use_mesh
+    from repro_torch.launch.hlo_analysis import CollectiveMeter
+    from repro_torch.models import build_model
+    from repro_torch.models.spec import axes_tree, params_from_numpy
+    model = build_model(_cfg("olmo-1b"))
+    meter = CollectiveMeter()
+    with use_mesh(mesh), torch.no_grad():
+        params = distribute_tree(params_from_numpy(params_np, device="cpu"),
+                                 axes_tree(model.specs()), mesh, params=True)
+        cache = distribute_tree(model.init_cache(B, METER_SEQ, torch.float32,
+                                                 device="cpu"),
+                                model.cache_axes(), mesh)
+        tok = torch.zeros((B, 1), dtype=torch.long)
+        pos = torch.full((B,), 5, dtype=torch.long)
+        with meter:
+            model.decode_step(params, cache, tok, pos)
+    return meter.records
+
+
+def _split_input(dtype):
+    """The (4, 6, 8) input of the split-reduction cases: seeded normal
+    values, batch row 0's first four entries of the last two dims at
+    ``-1e30`` (a whole block of every split case's reduced axis), and the
+    seeded upstream gradients of softmax and logsumexp."""
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal(SPLIT_SHAPE) * 3
+    x[0, :4, :4] = -1e30
+    g = rng.standard_normal(SPLIT_SHAPE)
+    return {"x": x.astype(dtype), "g": g.astype(dtype),
+            "g_lse": {dim: rng.standard_normal(
+                SPLIT_SHAPE[:dim] + SPLIT_SHAPE[dim + 1:]).astype(dtype)
+                for dim in (1, 2)}}
+
+
+def _placement(code):
+    from torch.distributed.tensor import Replicate, Shard
+    return Replicate() if code == "R" else Shard(int(code[1:]))
+
+
+def _split_reductions(dm):
+    """``spmd.softmax`` and ``spmd.logsumexp`` on every case of
+    ``SPLITS`` in both dtypes: the whole values and gradients, the
+    output placements and the collectives of forward and backward."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.distributed import spmd
+    from repro_torch.launch.hlo_analysis import CollectiveMeter
+
+    def place(a, pl):
+        return distribute_tensor(torch.from_numpy(a), dm, pl,
+                                 src_data_rank=None)
+    out = {}
+    for dtype in SPLIT_TOL:
+        inp = _split_input(dtype)
+        for case, (codes, dim) in SPLITS.items():
+            pl = tuple(_placement(c) for c in codes)
+            for fn in ("softmax", "logsumexp"):
+                x = place(inp["x"], pl).requires_grad_()
+                fwd, bwd = CollectiveMeter(), CollectiveMeter()
+                with fwd:
+                    y = getattr(spmd, fn)(x, dim)
+                g = place(inp["g"] if fn == "softmax"
+                          else inp["g_lse"][dim], y.placements)
+                with bwd:
+                    (gx,) = torch.autograd.grad(y, x, g)
+                out[(dtype, case, fn)] = {
+                    "y": y.full_tensor().detach().numpy(),
+                    "grad": gx.full_tensor().numpy(),
+                    "placements": tuple(y.placements),
+                    "forward": fwd.records, "backward": bwd.records}
+    return out
 
 
 def _rank_main(rank, workdir, port):
@@ -174,6 +301,7 @@ def _rank_main(rank, workdir, port):
     from repro_torch.data import SyntheticLM, make_global_batch
     from repro_torch.distributed.sharding import use_mesh
     from repro_torch.launch.hlo_analysis import CollectiveMeter
+    from repro_torch.launch import serve_mesh
     from repro_torch.launch.mesh import make_mesh, mesh_from_env
     from repro_torch.optim import grad_compress
 
@@ -217,7 +345,14 @@ def _rank_main(rank, workdir, port):
                     "equal": bool(torch.equal(y.full_tensor(),
                                               torch.arange(64.0)
                                               .reshape(8, 8)))}
+    res["split"] = _split_reductions(dm)
+    res["decode_collectives"] = _metered_decode(
+        mesh, inputs["olmo-1b"]["params"])
     res["launch"] = _launchers(mesh)
+    res["serve_mesh"] = serve_mesh.compare(
+        make_mesh((1, WORLD), ("data", "model"), "cpu"), smoke=True,
+        requests=5, max_new=6, max_batch=2, max_seq=32, device="cpu",
+        dtype="float32")
     os.environ["WORLD_SIZE"] = str(WORLD)
     env_mesh = mesh_from_env("cpu")
     res["launch"]["env_mesh"] = dict(env_mesh.shape)
@@ -441,3 +576,109 @@ def test_launchers_serve_and_train_sharded(runs):
         assert got["env_serve"] == want["serve"]
         np.testing.assert_allclose(got["losses"], want["losses"],
                                    rtol=1e-2, err_msg="train losses")
+
+
+def test_serve_mesh_splits_the_cache_four_ways(runs):
+    """``launch.serve_mesh.compare`` on a (data=1, model=4) mesh, the
+    cache's sequence split over all four ranks: the sharded and metered
+    runs serve the one-device run's tokens, and the metered run's
+    collectives are all-reduces and all-gathers."""
+    want = runs["launch"]["serve"]
+    for r in runs["ranks"]:
+        got = r["serve_mesh"]
+        assert got["mesh"] == {"data": 1, "model": WORLD}
+        assert got["tokens_equal"] and got["results"] == want
+        assert set(got["first_divergence"].values()) == {None}
+        assert got["decode_steps"] == len(got["decode_ms"]["plain"]) > 0
+        assert got["collectives"]["count"] > 0
+        assert set(got["collectives"]["operand_bytes"]) <= {
+            "all-reduce", "all-gather", "all-to-all", "reduce-scatter"}
+        assert got["collectives"]["operand_bytes"]["all-reduce"] > 0
+
+
+def _split_want(dtype, case, fn):
+    """torch's function on the whole input, and its gradient."""
+    inp = _split_input(dtype)
+    dim = SPLITS[case][1]
+    x = torch.from_numpy(inp["x"]).requires_grad_()
+    y = getattr(torch, fn)(x, dim)
+    g = inp["g"] if fn == "softmax" else inp["g_lse"][dim]
+    (gx,) = torch.autograd.grad(y, x, torch.from_numpy(g))
+    return y.detach().numpy(), gx.numpy()
+
+
+@pytest.mark.parametrize("fn", ["softmax", "logsumexp"])
+@pytest.mark.parametrize("case", sorted(SPLITS))
+@pytest.mark.parametrize("dtype", sorted(SPLIT_TOL))
+def test_split_reductions_match_torch(runs, dtype, case, fn):
+    """Values and gradients within ``SPLIT_TOL`` of scale (1e-6 in
+    float32, 1e-12 in float64: the global sum taken in another order)
+    of torch's function on the whole tensor. The output keeps every
+    placement of the input but ``dim`` (logsumexp drops it); each mesh
+    axis that splits ``dim`` costs one all-reduce of the statistic's
+    shape for the maximum and one for the sum, softmax's backward one
+    more for the sum, and nothing is gathered."""
+    from torch.distributed.tensor import Replicate, Shard
+    codes, dim = SPLITS[case]
+    pl = tuple(_placement(c) for c in codes)
+    want_y, want_g = _split_want(dtype, case, fn)
+    tol = SPLIT_TOL[dtype]
+    split = [p for p in pl if p == Shard(dim)]
+    stat = np.prod([n // (2 if any(p == Shard(d) for p in pl) else 1)
+                    for d, n in enumerate(SPLIT_SHAPE) if d != dim])
+    stat_bytes = int(stat) * np.dtype(dtype).itemsize
+    if fn == "softmax":
+        want_pl = pl
+    else:
+        want_pl = tuple(Replicate() if p == Shard(dim)
+                        else Shard(p.dim - 1) if isinstance(p, Shard)
+                        and p.dim > dim else p for p in pl)
+    for r in runs["ranks"]:
+        got = r["split"][(dtype, case, fn)]
+        _close(got["y"], want_y, tol, f"{case} {fn} value")
+        _close(got["grad"], want_g, tol, f"{case} {fn} gradient")
+        assert got["placements"] == want_pl
+        assert got["forward"] == [("all-reduce", stat_bytes, 2)] \
+            * (2 * len(split))
+        assert got["backward"] == ([("all-reduce", stat_bytes, 2)]
+                                   * len(split) if fn == "softmax" else [])
+
+
+def test_sharded_decode_step_reduces_and_never_gathers_the_logits(runs):
+    """One decode step of reduced olmo-1b on the 2×2 mesh, its cache
+    split over the sequence ('cache_seq' over 'model'): no all-gather of
+    the logits' local (B/2, KV, rep, 1, METER_SEQ/2) float32 block (nor
+    of the block gathered whole), and two all-reduces of their (B/2, KV,
+    rep, 1, 1) maximum and sum a layer. The logits are split over the
+    sequence, not the KV heads, which stay whole on every rank."""
+    cfg = _cfg("olmo-1b")
+    rep = cfg.n_heads // cfg.n_kv_heads
+    stat = (B // 2) * cfg.n_kv_heads * rep * 4
+    logits_local = stat * (METER_SEQ // 2)
+    for r in runs["ranks"]:
+        recs = r["decode_collectives"]
+        assert recs, "the sharded decode step issued no collective"
+        assert not [x for x in recs if x[0] == "all-gather"
+                    and x[1] in (logits_local, 2 * logits_local)], recs
+        assert [x for x in recs if x[:2] == ("all-reduce", stat)] == \
+            [("all-reduce", stat, 2)] * (2 * cfg.n_layers)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_sharded_train_step_gathers_no_vocab_logits(runs, arch):
+    """The gradients of one train step on the 2×2 mesh (the vocab split
+    over 'model'): no all-gather over 'model' as large as a rank's logits
+    with the whole vocab, (B/2, 16, V) float32; the loss is
+    vocab-parallel. (The backward of the logits' reduce-scatter over
+    'data' gathers their gradient's batch, of the same size, over
+    'data'.)"""
+    cfg = _cfg(arch)
+    whole_vocab = (B // 2) * 16 * cfg.vocab * 4
+    for r in runs["ranks"]:
+        recs = r[arch]["train_collectives"]
+        assert recs, "the sharded train step issued no collective"
+        assert all(x[3] in ("data", "model") for x in recs
+                   if x[0] == "all-gather"), recs
+        big = [x for x in recs if x[0] == "all-gather"
+               and x[3] == "model" and x[1] >= whole_vocab]
+        assert not big, big

@@ -339,3 +339,40 @@ def test_dense_layer_collectives_closed_form():
     assert wire == {"all-gather": int(wi_gathered * 15 / 16)
                     + int(wo_gathered * 15 / 16),
                     "all-reduce": int(2 * y_local * 15 / 16)}
+
+
+def test_split_k_decode_reduces_the_logits_closed_form():
+    """One ``attention_decode`` of reduced olmo-1b on the 16×16 mesh, its
+    cache split over the sequence ('cache_seq' over 'model'): the logits
+    stay split, so no all-gather of their local (B/16, KV, rep, 1, S/16)
+    float32 block (nor of that block gathered whole) is issued, and
+    exactly two all-reduces of their (B/16, KV, rep, 1, 1) maximum and
+    sum."""
+    cfg = dataclasses.replace(get_config("olmo-1b").reduced(),
+                              dtype="float32")
+    B, S, f32 = 32, 64, 4
+    KV, rep = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    specs = L.attn_specs(cfg)
+    with D.fake_group(256):
+        mesh = make_production_mesh(device_type="cpu")
+        with use_mesh(mesh):
+            p = distribute_tree(abstract_params(specs, "float32"),
+                                axes_tree(specs), mesh, params=True)
+            cache = [distribute_tree(
+                torch.empty(B, S, KV, cfg.hd, device="meta"),
+                ("batch", "cache_seq", "kv_heads", None), mesh)
+                for _ in range(2)]
+            x = distribute_tree(torch.empty(B, 1, cfg.d_model, device="meta"),
+                                ("batch", None, None), mesh)
+            pos = torch.full((B,), 5, dtype=torch.long, device="meta")
+            meter = CollectiveMeter()
+            with meter:
+                y, ck, _ = L.attention_decode(p, cfg, x, *cache, pos)
+    assert ck.placements == (Shard(0), Shard(1))
+    assert y.placements == (Shard(0), Replicate())
+    logits_local = (B // 16) * KV * rep * (S // 16) * f32
+    stat = (B // 16) * KV * rep * 1 * 1 * f32
+    assert not [r for r in meter.records if r[0] == "all-gather"
+                and r[1] in (logits_local, 16 * logits_local)], meter.records
+    assert [r for r in meter.records if r[:2] == ("all-reduce", stat)] == \
+        [("all-reduce", stat, 16)] * 2
