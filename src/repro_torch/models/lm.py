@@ -35,6 +35,7 @@ from ..core.engine import resolve_device
 from ..distributed.sharding import (constrain, current_mesh, current_rules,
                                      use_mesh)
 from ..distributed.spmd import einsum, reshape
+from ..obs.trace import span as _span
 from . import layers as L
 from . import mamba as M
 from .spec import Spec, stack_specs, torch_dtype, tree_map, wide
@@ -295,7 +296,8 @@ class Model(torch.nn.Module):
             return x, None
         per_group = []
         for g in range(n):
-            x, c = body(g, x)
+            with _span("model.group", g=g):
+                x, c = body(g, x)
             per_group.append(c)
         return x, _stack(per_group)
 
@@ -335,31 +337,32 @@ class Model(torch.nn.Module):
         """Returns (logits, cache). Cache leaves are stacked over groups;
         the cache is ``None`` where the groups run checkpointed (a remat
         policy with gradients on)."""
-        cfg = self.cfg
-        tokens = batch["tokens"]
-        B, S = tokens.shape
-        dev = tokens.device
-        x = L.embed(params["embed"], cfg, tokens)
-        positions3 = None
-        if cfg.family == "vlm":
-            patches = einsum("bpd,de->bpe", batch["patch_embeds"],
-                                   params["patch_proj"]["w"]).to(x.dtype)
-            n_p = patches.shape[1]
-            x = torch.cat([patches, x[:, :S - n_p]], dim=1)
-            positions3 = self._positions3(B, S, dev)
-        pos = self._positions(B, S, dev)
+        with _span("model.forward", tokens=batch["tokens"].numel()):
+            cfg = self.cfg
+            tokens = batch["tokens"]
+            B, S = tokens.shape
+            dev = tokens.device
+            x = L.embed(params["embed"], cfg, tokens)
+            positions3 = None
+            if cfg.family == "vlm":
+                patches = einsum("bpd,de->bpe", batch["patch_embeds"],
+                                 params["patch_proj"]["w"]).to(x.dtype)
+                n_p = patches.shape[1]
+                x = torch.cat([patches, x[:, :S - n_p]], dim=1)
+                positions3 = self._positions3(B, S, dev)
+            pos = self._positions(B, S, dev)
 
-        cross_kv = None
-        if cfg.family == "encdec":
-            enc_out = self.encode(params, batch["frames"])
-            cross_kv = self.encoder_kv(params, enc_out)
-            x = x + _sinusoid(S, cfg.d_model, x.dtype, dev)[None]
+            cross_kv = None
+            if cfg.family == "encdec":
+                enc_out = self.encode(params, batch["frames"])
+                cross_kv = self.encoder_kv(params, enc_out)
+                x = x + _sinusoid(S, cfg.d_model, x.dtype, dev)[None]
 
-        x, caches = self._groups(params, x, pos, positions3,
-                                 cross_kv=cross_kv)
-        x = L.apply_norm(params["final_norm"], cfg, x)
-        logits = L.unembed(params["embed"], cfg, x)
-        return logits, caches
+            x, caches = self._groups(params, x, pos, positions3,
+                                     cross_kv=cross_kv)
+            x = L.apply_norm(params["final_norm"], cfg, x)
+            logits = L.unembed(params["embed"], cfg, x)
+            return logits, caches
 
     # -- decode ---------------------------------------------------------------
 
@@ -421,20 +424,21 @@ class Model(torch.nn.Module):
 
     def decode_step(self, params, cache, tokens, pos):
         """tokens (B,1); pos (B,) write index. Returns (logits, new cache)."""
-        cfg = self.cfg
-        pos = pos.long()
-        x = L.embed(params["embed"], cfg, tokens)
-        if cfg.family == "encdec":
-            x = x + _sinusoid_at(pos, cfg.d_model, x.dtype)[:, None, :]
-        positions3 = None  # vlm decode: text-only continuation (stub)
-        x, new_layer_cache = self._groups(
-            params, x, pos, positions3, cache=cache["layers"],
-            cross_kv=cache.get("cross_kv"))
-        x = L.apply_norm(params["final_norm"], cfg, x)
-        logits = L.unembed(params["embed"], cfg, x)
-        new_cache = dict(cache)
-        new_cache["layers"] = new_layer_cache
-        return logits, new_cache
+        with _span("model.decode_step", batch=tokens.shape[0]):
+            cfg = self.cfg
+            pos = pos.long()
+            x = L.embed(params["embed"], cfg, tokens)
+            if cfg.family == "encdec":
+                x = x + _sinusoid_at(pos, cfg.d_model, x.dtype)[:, None, :]
+            positions3 = None  # vlm decode: text-only continuation (stub)
+            x, new_layer_cache = self._groups(
+                params, x, pos, positions3, cache=cache["layers"],
+                cross_kv=cache.get("cross_kv"))
+            x = L.apply_norm(params["final_norm"], cfg, x)
+            logits = L.unembed(params["embed"], cfg, x)
+            new_cache = dict(cache)
+            new_cache["layers"] = new_layer_cache
+            return logits, new_cache
 
 
 def _sinusoid(S: int, D: int, dtype, device=None):

@@ -1,6 +1,7 @@
 """Zero-dependency telemetry for the PyTorch port.
 
-A copy of ``src/repro/obs/``.
+The same modules as the reference's ``src/repro/obs/``, kept as the
+port's own so that it never imports the reference package.
 
 * :mod:`repro_torch.obs.trace` — contextvar-propagated span tracer with
   Chrome-trace/Perfetto JSON export; disabled by default (``$MATPIM_TRACE``
@@ -8,8 +9,17 @@ A copy of ``src/repro/obs/``.
 * :mod:`repro_torch.obs.metrics` — process-wide registry of counters,
   gauges and fixed-bucket histograms with quantile readout.
 
-Both are stdlib-only. The port keeps its own copy so it never imports the
-reference package.
+Both are stdlib-only. PlanService's path (``serve.*``, ``engine.execute``,
+``compile.*``, ``autotune.*``) and the model path publish into them. The
+model path's spans are ``engine.admit`` (``.handoff``, ``.first_token``),
+``engine.step`` (``.fetch``, ``.sample``) in ``serve/engine.py`` and
+``model.forward``, ``model.decode_step`` and one ``model.group`` per layer
+group in ``models/lm.py``; its counters are ``engine.tokens`` and
+``engine.host_copy_bytes``. ``tests/test_torch_serve_engine.py`` holds
+that span tree, the counters and the disabled tracer (no event recorded,
+the same tokens) on the CPU and runs both modules' examples;
+``tests/test_torch_faults.py`` holds the crossbar engine's fault counters,
+gauges and spans.
 """
 from .metrics import (Counter, Gauge, Histogram, MetricsRegistry, registry,
                       reset_metrics, snapshot)

@@ -1,16 +1,19 @@
 """Process-wide metrics registry: counters, gauges, fixed-bucket histograms.
 
-A verbatim copy of ``src/repro/obs/metrics.py`` (stdlib only).
+The reference's ``src/repro/obs/metrics.py``, kept as the port's own
+(stdlib only).
 
 Unlike the span tracer, metrics are **always on**: an update is one dict
 lookup plus an integer/float add, cheap enough for every ``engine.execute``
-call. The registry is the single source the serving layer, the autotuner
-and the engine publish into; :func:`snapshot` renders it as a stable
-(sorted, JSON-serializable) dict for ``BENCH_slo.json`` and ad-hoc dumps.
+call and every token the serving engine samples. The registry is the
+single source the serving layers, the autotuner and the engines publish
+into; :func:`snapshot` renders it as a stable (sorted, JSON-serializable)
+dict.
 
 Metric names are dotted paths with the owning layer first
 (``serve.request_latency_us``, ``engine.execute.wall_us.numpy-fused``,
-``autotune.resolve.measured``, …) — the catalog lives in
+``autotune.resolve.measured``, ``engine.tokens``,
+``engine.host_copy_bytes``, …); the reference's catalog is in
 ``docs/ARCHITECTURE.md`` §Observability.
 
 Histograms use fixed 1-2-5 geometric bucket bounds (µs-scaled by default),

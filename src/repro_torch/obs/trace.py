@@ -1,6 +1,7 @@
 """Contextvar-propagated span tracer with Chrome-trace/Perfetto export.
 
-A verbatim copy of ``src/repro/obs/trace.py`` (stdlib only).
+The reference's ``src/repro/obs/trace.py``, kept as the port's own
+(stdlib only).
 
 Instrumented code calls :func:`span` around a timed region:
 
@@ -14,11 +15,15 @@ track). The recorded events are Chrome-trace *complete* events (``"ph":
 "X"`` with microsecond ``ts``/``dur``), the format both ``chrome://tracing``
 and https://ui.perfetto.dev load directly.
 
-Cost model — this module is imported by the engine hot path, so the
-**disabled** path is a module-global boolean check plus returning a no-op
-singleton context manager (no allocation, no clock read; asserted <2% of
-``engine.execute`` wall in ``tests/test_obs.py``). Tracing only pays for
-clock reads and one dict append per span when enabled.
+Cost model — this module is imported by the hot paths (the crossbar
+engine's ``engine.execute``; the serving engine's ``engine.admit`` and
+``engine.step``; the model's ``model.forward``, ``model.decode_step`` and
+``model.group``, sixteen a call for olmo-1b), so the **disabled** path is a
+module-global boolean check plus returning a no-op singleton context
+manager (no allocation, no clock read). ``tests/test_torch_serve_engine.py``
+checks that it records no event and leaves the served tokens as they are.
+Tracing only pays for clock reads and one dict append per span when
+enabled.
 
 Enabling: programmatic :func:`enable`/:func:`disable`, or set
 ``$MATPIM_TRACE`` before import — the value ``1`` just enables, any other
@@ -197,7 +202,7 @@ def span(name: str, **args):
 
 
 # $MATPIM_TRACE: enable at import; any value other than "1" is the output
-# path, flushed at interpreter exit (nightly CI uploads it as an artifact)
+# path, flushed at interpreter exit
 _env = os.environ.get("MATPIM_TRACE")
 if _env and _env != "0":
     enable()

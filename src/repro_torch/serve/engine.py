@@ -15,6 +15,17 @@ gathered whole to the host, where sampling reads them.
 Every prefill and decode step is timed on the device: CUDA events on a
 card (read after the step's logits reach the host, which waits for them
 anyway), the host clock on the CPU. :meth:`Engine.timings` returns them.
+
+With :mod:`repro_torch.obs.trace` enabled, the engine's host work is
+spanned: ``engine.admit`` (``uid``, ``prompt_len``, ``slot``) with its
+``engine.admit.handoff`` (the prefill's cache rows set into the slot) and
+``engine.admit.first_token`` (the last logits to the host, sampled), and
+``engine.step`` (``live`` slots; its self time is the token feed) with its
+``engine.step.fetch`` (the logits to the host, ``bytes``) and
+``engine.step.sample`` (sampling and retirement); the model's own spans
+nest inside. Two counters of :mod:`repro_torch.obs.metrics` are always
+on: ``engine.tokens``, every token sampled, and ``engine.host_copy_bytes``,
+the bytes of every logits tensor copied to the host.
 """
 from __future__ import annotations
 
@@ -30,13 +41,18 @@ from torch.distributed.tensor import DTensor
 from ..distributed.sharding import distribute_tree, write_block
 from ..models.lm import Model
 from ..models.spec import torch_dtype, tree_leaves
+from ..obs import metrics as _metrics
+from ..obs.trace import span as _span
 
 
 def _host(x: torch.Tensor) -> np.ndarray:
-    """Logits on the host for sampling (a DTensor gathered whole)."""
+    """Logits on the host for sampling (a DTensor gathered whole), their
+    bytes counted in ``engine.host_copy_bytes``."""
     if isinstance(x, DTensor):
         x = x.full_tensor()
-    return x.float().cpu().numpy()
+    x = x.float()
+    _metrics.counter("engine.host_copy_bytes").inc(x.nbytes)
+    return x.cpu().numpy()
 
 
 @dataclasses.dataclass
@@ -122,6 +138,12 @@ class Engine:
             slot = self.slots.index(None)
         except ValueError:
             return False
+        with _span("engine.admit", uid=req.uid, prompt_len=len(req.prompt),
+                   slot=slot):
+            self._admit(req, slot)
+        return True
+
+    def _admit(self, req: Request, slot: int) -> None:
         timer = _Timer(self.device)
         toks = torch.as_tensor(np.asarray(req.prompt), dtype=torch.long,
                                device=self.device)[None, :]
@@ -131,29 +153,31 @@ class Engine:
         # slot's cache rows — a set, so a recycled slot keeps no stale row
         # that the decode mask would let through
         layers = self.cache["layers"]
-        for name, c in caches.items():
-            dst = layers[name]
-            if "k" in c:  # attention
-                for kv in ("k", "v"):
-                    dst[kv] = write_block(dst[kv], (slice(None), slot,
-                                                    slice(0, S_p)),
-                                          c[kv][:, 0])
-            else:          # mamba states
-                for st in ("conv", "ssm"):
-                    dst[st] = write_block(dst[st], (slice(None), slot),
-                                          c[st][:, 0])
+        with _span("engine.admit.handoff"):
+            for name, c in caches.items():
+                dst = layers[name]
+                if "k" in c:  # attention
+                    for kv in ("k", "v"):
+                        dst[kv] = write_block(dst[kv], (slice(None), slot,
+                                                        slice(0, S_p)),
+                                              c[kv][:, 0])
+                else:          # mamba states
+                    for st in ("conv", "ssm"):
+                        dst[st] = write_block(dst[st], (slice(None), slot),
+                                              c[st][:, 0])
         timer.stop()
         self.pos[slot] = S_p
         req.out = []
-        first = self._sample(_host(last_logits)[0])
+        with _span("engine.admit.first_token"):
+            first = self._sample(_host(last_logits)[0])
         self._prefill_t.append((req.uid, timer))
         req.out.append(int(first))
         self.slots[slot] = req
-        return True
 
     # -- decode ---------------------------------------------------------------
 
     def _sample(self, logits: np.ndarray) -> int:
+        _metrics.counter("engine.tokens").inc()
         logits = logits[: self.cfg.vocab]
         if self.temperature <= 0:
             return int(np.argmax(logits))
@@ -167,6 +191,10 @@ class Engine:
         live = [i for i, r in enumerate(self.slots) if r is not None]
         if not live:
             return []
+        with _span("engine.step", live=len(live)):
+            return self._step(live)
+
+    def _step(self, live: List[int]) -> List[Tuple[int, int]]:
         tokens = np.zeros((self.B, 1), np.int64)
         for i in live:
             tokens[i, 0] = self.slots[i].out[-1]
@@ -178,17 +206,21 @@ class Engine:
         timer.stop()
         self._decode_t.append(timer)
         out = []
-        logits_np = _host(logits)[:, 0]
-        for i in live:
-            req = self.slots[i]
-            tok = self._sample(logits_np[i])
-            req.out.append(tok)
-            self.pos[i] += 1
-            out.append((req.uid, tok))
-            if tok == self.eos_id or len(req.out) >= req.max_new \
-                    or self.pos[i] >= self.S - 1:
-                req.done = True
-                self.slots[i] = None
+        with _span("engine.step.fetch") as sp:
+            logits_np = _host(logits)
+            sp.set(bytes=logits_np.nbytes)
+        logits_np = logits_np[:, 0]
+        with _span("engine.step.sample"):
+            for i in live:
+                req = self.slots[i]
+                tok = self._sample(logits_np[i])
+                req.out.append(tok)
+                self.pos[i] += 1
+                out.append((req.uid, tok))
+                if tok == self.eos_id or len(req.out) >= req.max_new \
+                        or self.pos[i] >= self.S - 1:
+                    req.done = True
+                    self.slots[i] = None
         return out
 
     def run(self, requests: List[Request]) -> Dict[int, List[int]]:

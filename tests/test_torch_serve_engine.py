@@ -4,7 +4,10 @@ The reference's ``test_engine_matches_oracle`` setup (olmo reduced, f32,
 six requests on four slots, so slots are recycled) on the reference's own
 parameters: the port's greedy tokens equal the JAX ``Engine``'s and the
 port's own full-forward oracle. The same for the mamba reduced config,
-which hands a prefill's conv tail and SSM state into its slot.
+which hands a prefill's conv tail and SSM state into its slot. The
+engine's and the model's spans and counters (``repro_torch.obs``) on a
+tiny port model: their tree, their counts, and the same tokens with
+tracing on and off.
 """
 import dataclasses
 
@@ -25,7 +28,9 @@ from repro_torch.launch.mesh import (make_local_mesh,  # noqa: E402
                                      make_production_mesh)
 from repro_torch.launch.serve import main as serve_main  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models.spec import init_params  # noqa: E402
 from repro_torch.models.spec import params_from_numpy  # noqa: E402
+from repro_torch.obs import metrics, trace  # noqa: E402
 from repro_torch.serve import Engine, Request  # noqa: E402
 
 
@@ -98,7 +103,6 @@ def test_engine_mamba_state_handoff():
 def test_sampling_needs_a_generator():
     cfg = get_config("olmo-1b").reduced()
     model = build_model(cfg)
-    from repro_torch.models.spec import init_params
     params = init_params(model.specs(), torch.Generator().manual_seed(0),
                          "float32")
     with pytest.raises(ValueError, match="generator"):
@@ -129,3 +133,110 @@ def test_launcher_and_meshes(capsys):
             make_production_mesh()
         with pytest.raises(ValueError, match="512 devices"):
             make_production_mesh(multi_pod=True)
+
+
+def _tiny():
+    """The reduced olmo in float32 on the port's own seeded weights."""
+    cfg = dataclasses.replace(get_config("olmo-1b").reduced(),
+                              dtype="float32")
+    model = build_model(cfg)
+    params = init_params(model.specs(), torch.Generator().manual_seed(0),
+                         "float32")
+    return cfg, model, params
+
+
+def _tree(events):
+    """Chrome-trace complete events of one thread as nested
+    ``(name, args, children)``, by time containment, in start order."""
+    roots, stack = [], []
+    for e in sorted(events, key=lambda e: (e["ts"], -e["dur"])):
+        while stack and e["ts"] >= stack[-1][0]["ts"] + stack[-1][0]["dur"]:
+            stack.pop()
+        node = (e, [])
+        (stack[-1][1] if stack else roots).append(node)
+        stack.append(node)
+
+    def strip(node):
+        e, kids = node
+        args = {k: v for k, v in e["args"].items() if k != "depth"}
+        return e["name"], args, [strip(k) for k in kids]
+    return [strip(n) for n in roots]
+
+
+def test_one_admit_and_one_step_give_the_span_tree():
+    cfg, model, params = _tiny()
+    B = 2
+    eng = Engine(model, params, max_batch=B, max_seq=32)
+    V = params["embed"]["tok"].shape[0]         # the logits' row
+    groups = [("model.group", {"g": g}, []) for g in range(model.n_groups)]
+    metrics.reset_metrics()
+    tr = trace.enable()
+    try:
+        assert eng.admit(Request(uid=7, prompt=np.arange(1, 9), max_new=4))
+        eng.step()
+    finally:
+        trace.disable()
+    assert _tree(tr.events()) == [
+        ("engine.admit", {"uid": 7, "prompt_len": 8, "slot": 0}, [
+            ("model.forward", {"tokens": 8}, groups),
+            ("engine.admit.handoff", {}, []),
+            ("engine.admit.first_token", {}, [])]),
+        ("engine.step", {"live": 1}, [
+            ("model.decode_step", {"batch": B}, groups),
+            ("engine.step.fetch", {"bytes": B * V * 4}, []),
+            ("engine.step.sample", {}, [])])]
+    snap = metrics.snapshot()
+    assert snap["engine.tokens"]["value"] == 2
+    assert snap["engine.host_copy_bytes"]["value"] == V * 4 + B * V * 4
+
+
+@pytest.mark.parametrize("traced", [False, True])
+def test_counters_and_tokens_with_tracing_on_and_off(traced):
+    """Three requests on two slots (a slot recycled, steps with an empty
+    slot): the counters equal the tokens served and a float32 logits row
+    per prefill and per slot of every step; the tokens are the oracle's
+    either way; a tracer turned off records nothing."""
+    cfg, model, params = _tiny()
+    B = 2
+    eng = Engine(model, params, max_batch=B, max_seq=48)
+    V = params["embed"]["tok"].shape[0]
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab, (6 + 2 * i,)) for i in range(3)]
+    metrics.reset_metrics()
+    tr = trace.enable()
+    if not traced:
+        trace.disable()
+    try:
+        got = eng.run([Request(uid=i, prompt=p, max_new=3 + i)
+                       for i, p in enumerate(prompts)])
+    finally:
+        trace.disable()
+    for uid, p in enumerate(prompts):
+        assert got[uid] == oracle_continuation(model, params, cfg, p, 3 + uid)
+    steps = len(eng.timings()["decode_ms"])
+    snap = metrics.snapshot()
+    assert snap["engine.tokens"]["value"] == sum(map(len, got.values()))
+    assert snap["engine.host_copy_bytes"]["value"] == \
+        (len(prompts) + steps * B) * V * 4
+    names = [e["name"] for e in tr.events()]
+    if not traced:
+        assert names == []
+        return
+    assert names.count("engine.admit") == len(prompts)
+    assert names.count("engine.step") == names.count(
+        "model.decode_step") == steps
+    assert names.count("model.group") == model.n_groups * (
+        steps + len(prompts))
+
+
+@pytest.mark.parametrize("module", ["repro_torch.obs.trace",
+                                    "repro_torch.obs.metrics"])
+def test_obs_docstring_examples(module):
+    """The examples in the port's obs modules run as written."""
+    import doctest
+    import importlib
+    try:
+        res = doctest.testmod(importlib.import_module(module))
+    finally:
+        trace.disable()
+    assert res.attempted > 0 and res.failed == 0
