@@ -7,7 +7,9 @@ Needs one CUDA card, ``nvcc`` (``$CUDA_HOME`` or ``/usr/local/cuda``) and
 each printing one JSON line per record:
 
 1. build   — compile every CUDA source of the port (one ``nvcc`` each, all
-             started together) and print the build seconds and ptxas report;
+             started together; of ``decode_attention.cu`` the served
+             variant, olmo-1b's bf16 cache at one query head a KV head) and
+             print the build seconds, each source's, and ptxas report;
              read the card's integer rates at the max SM clock
              ``nvidia-smi`` reports: XOR and add at 64 per SM per clock,
              population count at 16.
@@ -24,7 +26,11 @@ each printing one JSON line per record:
              launch floor (514×514×256 and 258×258×1024, k 3), 25 taps on
              260×260×256, 3-word rows and the ops path's image at 1 and 3
              words off 16 bytes, each also timed under the other staging
-             choices of its plan (record ``bconv_modes``);
+             choices of its plan (record ``bconv_modes``), and for
+             decode_attention at the chat and rag cells' decode shapes
+             (olmo-1b, 32 slots at rows 256–1280 and 16 at 1536–1984 of a
+             2048-row bf16 cache, rows past ``pos`` at NaN; within one
+             bf16 rounding plus 1e-5 of the values' scale);
              the compared call's launch count; kernel, plain and library
              times from CUDA events — per call, and for the kernel and the
              library also per launch replayed from a CUDA graph, without the
@@ -34,8 +40,10 @@ each printing one JSON line per record:
              population count at the popcount rate). The library call is a
              yardstick the port never calls: ``torch.matmul`` of the unpacked
              ±1 operands (binary_matmul), ``torch.mv`` / ``torch.matmul``
-             (splitk_matvec), ``F.conv2d`` with ``groups=B`` (the convs) and
-             ``F.conv2d`` of the unpacked ±1 floats (binary_conv2d); TF32 is
+             (splitk_matvec), ``F.conv2d`` with ``groups=B`` (the convs),
+             ``F.conv2d`` of the unpacked ±1 floats (binary_conv2d) and
+             ``F.scaled_dot_product_attention`` over the whole cache under
+             the ``pos`` mask (decode_attention); TF32 is
              off for both matmul and cuDNN. For ``conv2d_shift``,
              ``splitk_matvec`` and ``binary_matmul`` at their served shapes
              and ``binary_conv2d`` at the ops path's, also the host time of
@@ -146,7 +154,13 @@ each printing one JSON line per record:
              decode steps on the card against its forward; in float64 the
              first 4 decode steps equal the forward within 1e-9 of it. A matpim-bnn forward (4 × 64 tokens) at
              full width. Record ``lm``. The model path launches none of the
-             five kernels: the reference's runs no Pallas kernel.
+             five crossbar kernels (the reference's runs no Pallas kernel);
+             the bf16 serving runs launch ``decode_attention`` once an
+             attention layer a decode step: olmo-1b's launches must equal
+             16 × its decode steps and ``attention.decode.kernel``'s calls,
+             with ``attention.decode.plain`` at 0, and mamba2-370m's 0
+             (record fields ``decode_attention_launches``,
+             ``attention_decode_calls``).
 9. train   — the model stack's training half on ``cuda``. Record ``train``:
              olmo-1b at full width in bf16 through ``launch.train.train``
              (the CLI's path; weights from a seeded ``torch.Generator``),
@@ -187,8 +201,10 @@ each printing one JSON line per record:
              free memory with 2 GB to spare, else mamba2-370m
              ``long_500k``): ``torch.cuda.max_memory_allocated`` over the
              first step against the predicted peak, and
-             ``FlopCounterMode``'s count on the real tensors, which must
-             equal the count on ``meta``; the first and a warm step's ms
+             ``FlopCounterMode``'s count on the real tensors (the
+             ``decode_attention`` operator by its registered formula, as
+             on ``meta``), which must equal the count on ``meta``; the
+             first and a warm step's ms
              from CUDA events (record ``dryrun_real``); the logits must be
              finite.
 
@@ -200,7 +216,12 @@ each printing one JSON line per record:
              "full", float32 moments, batch 8 × 256, through
              ``launch.train.train``) with DTensor parameters, cache,
              moments and batches, each beside the same run on plain tensors
-             (``make_local_mesh``): greedy tokens equal, losses within
+             (``make_local_mesh``): greedy tokens equal to a plain run's
+             whose caches are decoded through ``_sdpa``, as DTensor
+             caches are (the plain run through the ``decode_attention``
+             kernel sums in another order, so a random model's tokens may
+             part at a near tie: where they part is reported, entry
+             ``serve.kernel_vs_sharded``), losses within
              2^-7 relative and every updated parameter within
              ``TRAIN_F32_TOL`` of its scale (max abs difference and
              bit-equality reported); decode-step and train-step ms (CUDA
@@ -248,7 +269,8 @@ each printing one JSON line per record:
 
 Then the per-kernel summary line ``{"kernels": [...]}`` (``launches`` from
 the serve phase for binary_matmul, splitk_matvec and conv2d_shift, from the
-ops phase for conv2d_shift_tiled and binary_conv2d; the other numbers from
+ops phase for conv2d_shift_tiled and binary_conv2d, from the lm phase's
+serving runs for decode_attention; the other numbers from
 each kernel's main-path row, ``library_graph_ms`` the library yardstick
 replayed from a CUDA graph), the card's name and power limit from
 ``nvidia-smi``, and the last line ``{"ok": true, "device": {...}}``. Any
@@ -363,16 +385,28 @@ def xnor_work(rates, outputs: int, words: int) -> list:
 
 
 def phase_build() -> None:
+    import torch
     from repro_torch import kernels
+    from repro_torch.kernels import decode_attention as DA
+    served = DA.variant(torch.bfloat16, DA.decode_launch_plan(
+        32, 16, 16, 2048, 128, torch.bfloat16))
     sources = sorted(p.name for p in kernels.CSRC.glob("*.cu"))
+    jobs = [(s, served if s == DA.SOURCE else ()) for s in sources]
+
+    def timed(job):
+        t = time.perf_counter()
+        log = kernels.build(*job)
+        return log, time.perf_counter() - t
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
-        logs = dict(zip(sources, pool.map(kernels.build, sources)))
+        done = dict(zip(sources, pool.map(timed, jobs)))
     seconds = time.perf_counter() - t0
-    for src in sources:
-        kernels.load_library(src)
+    for job in jobs:
+        kernels.load_library(*job)
     emit("build", sources=sources, seconds=seconds,
-         ptxas={s: [ln for ln in logs[s].splitlines() if "ptxas" in ln]
+         seconds_by_source={s: done[s][1] for s in sources},
+         decode_attention_variant=list(served),
+         ptxas={s: [ln for ln in done[s][0].splitlines() if "ptxas" in ln]
                 for s in sources})
 
 
@@ -532,6 +566,53 @@ def rows_splitk(torch):
             torch, "splitk_matvec", shape, splitk_matvec,
             splitk_matvec_plain, lib, (a, x),
             _nbytes(a, x, y), [(2 * a.numel(), F32_FLOPS_PER_S)], tol))
+    return rows
+
+
+# decode_attention's served shapes: olmo-1b's 16 KV heads of 128 in bf16 over
+# a 2048-row cache, the chat cell's 32 slots at rows 256-1280 and the rag
+# cell's 16 at rows 1536-1984 (bench/mixes/)
+DECODE_SHAPES = (("chat", 32, 256, 1280), ("rag", 16, 1536, 1984))
+
+
+def rows_decode_attention(torch):
+    """``decode_attention`` at the served shapes against its plain version
+    on the card, rows past ``pos`` at NaN; the library yardstick is
+    ``F.scaled_dot_product_attention`` over the whole cache under the
+    ``pos`` mask, timed only (the port never calls it). Bound: the valid
+    rows of k and v read once, q read and the output written once
+    (``bytes_needed``), against 4 flops a cached element a query head."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (bytes_needed,
+                                                      decode_attention,
+                                                      decode_attention_plain)
+    g = torch.Generator(device="cuda").manual_seed(12)
+    H = KV = 16
+    S, hd = 2048, 128
+    rows = []
+    for name, B, lo, hi in DECODE_SHAPES:
+        pos = torch.randint(lo, hi + 1, (B,), generator=g, device="cuda")
+        q = torch.randn((B, 1, H, hd), generator=g,
+                        device="cuda").bfloat16()
+        k, v = (torch.randn((B, S, KV, hd), generator=g,
+                            device="cuda").bfloat16() for _ in range(2))
+        past = torch.arange(S, device="cuda")[None, :] > pos[:, None]
+        k[past], v[past] = float("nan"), float("nan")
+        lib_k, lib_v = (torch.nan_to_num(t).transpose(1, 2) for t in (k, v))
+        mask = ~past[:, None, None, :]
+        lib_q = q.transpose(1, 2)
+
+        def library(q=lib_q, k=lib_k, v=lib_v, m=mask):
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=m)
+        scale = float(torch.nan_to_num(v).float().abs().max())
+        valid = int((pos + 1).sum())
+        rows.append(kernel_row(
+            torch, "decode_attention", [name, B, S, KV, hd, "bf16"],
+            decode_attention, decode_attention_plain, library,
+            (q, k, v, pos),
+            bytes_needed(pos.tolist(), KV, hd, 2, H, 2),
+            [(4 * valid * H * hd, F32_FLOPS_PER_S)],
+            tol=(2.0 ** -7, 1e-5 * scale)))
     return rows
 
 
@@ -856,7 +937,8 @@ def phase_kernels(torch, rates) -> dict:
     return {**rows,
             "conv2d_shift": rows_conv(torch),
             "conv2d_shift_tiled": rows_tiled(torch),
-            "binary_conv2d": rows_binary_conv(torch, rates)}
+            "binary_conv2d": rows_binary_conv(torch, rates),
+            "decode_attention": rows_decode_attention(torch)}
 
 
 def correlate(img, K, N):
@@ -1064,11 +1146,14 @@ def serve_round(svc, reqs):
     return tickets, wall, spans
 
 
+# the crossbar kernels, whose launches the crossbar phases count, and the
+# model path's decode kernel, whose launches the lm phase counts
 COUNTED = ("binary_matmul", "splitk_matvec", "conv2d_shift",
-           "conv2d_shift_tiled", "binary_conv2d")
+           "conv2d_shift_tiled", "binary_conv2d", "decode_attention")
 
 
 def launch_counters():
+    """The five crossbar kernels' wrappers, which count their launches."""
     from repro_torch.kernels import binary_matmul, conv2d_shift, splitk_matvec
     return {"binary_matmul": binary_matmul.binary_matmul,
             "splitk_matvec": splitk_matvec.splitk_matvec,
@@ -1848,10 +1933,17 @@ def lm_serve(torch, arch: str) -> dict:
     """Serve 8 requests (16 new tokens each, 4 slots, a 128-row cache)
     through the port's launcher at full width in the config's bf16, with
     weights from a seeded ``torch.Generator`` on the card."""
+    from repro_torch.kernels.decode_attention import \
+        decode_attention as decode
     from repro_torch.launch.serve import serve
+    from repro_torch.obs import metrics
+    paths = [metrics.counter(f"attention.decode.{n}")
+             for n in ("kernel", "plain")]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
+    decode.launches = 0
+    calls0 = [c.value for c in paths]
     rep = serve(arch, requests=8, max_new=16, max_batch=4, max_seq=128,
                 device="cuda")
     cfg, eng = rep["cfg"], rep["engine"]
@@ -1863,6 +1955,13 @@ def lm_serve(torch, arch: str) -> dict:
           f"{arch}: served {results}")
     tm = eng.timings()
     dec = sorted(tm["decode_ms"])
+    launches = decode.launches
+    calls = [c.value - v for c, v in zip(paths, calls0)]
+    attn = {"olmo-1b": cfg.n_layers, "mamba2-370m": 0}[arch]
+    check(launches == attn * len(dec) and calls == [launches, 0],
+          f"{arch}: decode_attention launched {launches} times in "
+          f"{len(dec)} decode steps of {attn} attention layers; "
+          f"attention_decode's kernel and plain calls {calls}")
     n_tok = sum(len(v) for v in results.values())
     step_bytes = _decode_bytes(eng.model, eng.params, eng.B, eng.S)
     out = {"arch": arch, "dtype": cfg.dtype, "n_layers": cfg.n_layers,
@@ -1878,6 +1977,8 @@ def lm_serve(torch, arch: str) -> dict:
            "decode_step_bytes": step_bytes,
            "decode_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
            "weights_bound_ms": rep["param_bytes"] / HBM_BYTES_PER_S * 1e3,
+           "decode_attention_launches": launches,
+           "attention_decode_calls": dict(zip(("kernel", "plain"), calls)),
            "peak_memory_bytes": peak, "allocated_before_bytes": before,
            "first_tokens": {u: results[u][:4] for u in range(2)}}
     del rep, eng
@@ -1891,7 +1992,8 @@ def phase_lm(torch, card: str) -> None:
     prefill ms and decode-step ms from CUDA events, tokens per second,
     peak memory, the decode step's bytes bound), both checked in float32
     (card against CPU, decode against the forward), and a forward of
-    matpim-bnn. Any mismatch raises."""
+    matpim-bnn. Any mismatch raises. Returns decode_attention's launches
+    in the two bf16 serving runs."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.models.spec import init_params
@@ -1926,6 +2028,7 @@ def phase_lm(torch, card: str) -> None:
               "d_ff": cfg.d_ff, "batch": [4, 64], "forward_ms": {"first": bnn_ms[0],
                                                 "warm": bnn_ms[1]},
               "dtype": cfg.dtype})
+    return sum(s["decode_attention_launches"] for s in served.values())
 
 
 # H100 SXM dense bf16 tensor-core rate (NVIDIA's data sheet): the train
@@ -2212,6 +2315,34 @@ DIST_CELLS = (("olmo-1b", "train_4k", False), ("olmo-1b", "decode_32k", False),
               ("mamba2-370m", "decode_32k", False),
               ("olmo-1b", "train_4k", True))
 DIST_REQUESTS, DIST_NEW, DIST_STEPS = 8, 16, 3
+
+
+@contextlib.contextmanager
+def sdpa_decode():
+    """Plain caches decoded through ``_sdpa``, as DTensor caches are: the
+    plain run that does the sharded run's arithmetic. Through the
+    ``decode_attention`` kernel a plain run sums each softmax in another
+    order, and a random model's greedy tokens may part at a near tie."""
+    from unittest import mock
+
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.obs import metrics
+    plain = metrics.counter("attention.decode.plain")
+    before = plain.value
+    with mock.patch.object(DA, "DTYPES", ()):
+        yield
+    check(plain.value > before, "no decode went through _sdpa")
+
+
+def agreement(a: dict, b: dict) -> dict:
+    """Where two runs' greedy tokens part: each uid's first differing
+    index (None where all agree) and the count of equal tokens."""
+    first = {u: next((i for i, (x, y) in enumerate(zip(a[u], b[u]))
+                      if x != y), None) for u in a}
+    return {"tokens_equal": sum(x == y for u in a
+                                for x, y in zip(a[u], b[u])),
+            "tokens": sum(len(v) for v in a.values()),
+            "first_difference": first}
 
 
 def dist_serve(torch, mesh) -> dict:
@@ -2563,6 +2694,8 @@ def phase_dist(torch, card: str) -> None:
             mesh = make_mesh((1, 1), ("data", "model"), "cuda")
             local = make_local_mesh("cuda")
             plain_serve = dist_serve(torch, local)
+            with sdpa_decode():
+                plain_sdpa = dist_serve(torch, local)
             serve_meter = CollectiveMeter()
             with serve_meter:
                 sharded_serve = dist_serve(torch, mesh)
@@ -2577,8 +2710,9 @@ def phase_dist(torch, card: str) -> None:
         card_s = time.perf_counter() - t0
         cells = list(cells)
     wall = time.perf_counter() - t0
-    check(sharded_serve["results"] == plain_serve["results"],
-          "sharded serving's greedy tokens differ from plain tensors'")
+    check(sharded_serve["results"] == plain_sdpa["results"],
+          "sharded serving's greedy tokens differ from plain tensors' "
+          "decoded through _sdpa")
     check(len(sharded_serve["results"]) == DIST_REQUESTS
           and all(len(v) == DIST_NEW
                   for v in sharded_serve["results"].values()),
@@ -2611,6 +2745,8 @@ def phase_dist(torch, card: str) -> None:
          mesh={"data": 1, "model": 1}, arch="olmo-1b", dtype="bfloat16",
          serve={"requests": DIST_REQUESTS, "max_new": DIST_NEW,
                 "tokens_equal": True,
+                "kernel_vs_sharded": agreement(plain_serve["results"],
+                                               sharded_serve["results"]),
                 "decode_ms_median_warm": times(plain_serve, sharded_serve,
                                                "decode_ms_median_warm"),
                 "decode_ms": {"plain": plain_serve["decode_ms"],
@@ -2676,6 +2812,8 @@ SOURCES = {
                            "src/repro/kernels/conv2d_shift.py:63"),
     "binary_conv2d": ("src/repro_torch/csrc/conv2d_shift.cu",
                       "src/repro/kernels/conv2d_shift.py:100"),
+    "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
+                         "none"),
 }
 
 
@@ -2701,7 +2839,7 @@ def main() -> int:
                      if n in ("conv2d_shift_tiled", "binary_conv2d")})
     phase_apps(torch)
     phase_faults(torch)
-    phase_lm(torch, name_limit)
+    launches["decode_attention"] = phase_lm(torch, name_limit)
     phase_train(torch, name_limit)
     phase_oracle(torch)
     phase_dryrun(torch, name_limit)

@@ -16,12 +16,21 @@ Each is CUDA C++ for sm_90a in place of a Pallas kernel of
                           (all three ``conv2d_shift.py``,
                           ``csrc/conv2d_shift.cu``)
 
+and one that replaces no Pallas kernel, on the model stack's decode path:
+
+    decode_attention    — split-K flash decoding of one query row against
+                          a KV cache's valid rows, read once in 16-byte
+                          loads (``decode_attention.py``,
+                          ``csrc/decode_attention.cu``)
+
 The wrappers share one host path (:func:`launch`): the checks and values
 that depend only on shapes and dtypes are computed once per signature and
 cached (:class:`Signature`, with the launch arguments packed in a
 ``ctypes.Structure``), so a call on CUDA tensors makes a few device and
 layout checks, one ``new_empty``, one stream read and one ctypes call with
-three data pointers, the packed arguments' address and the stream.
+the data pointers (two operands and the output; ``decode_attention``'s
+four operands, output and scratch), the packed arguments' address and the
+stream.
 :func:`staged_rows` is the launch plan shared by the two kernels that stage
 whole short rows in shared memory (``splitk_matvec``, ``binary_matmul``).
 
@@ -35,7 +44,10 @@ Each kernel's CUDA source lives in ``src/repro_torch/csrc/``. At first use
 :func:`load_library` compiles it with ``nvcc`` into a shared library with a
 plain C interface under ``build/repro_torch/`` at the repository root and
 loads it with ``ctypes``. The library's file name carries a hash of the
-source and the flags, so a stale build is never loaded. Nothing is built or
+source and the flags, so a stale build is never loaded. A source may take
+``-D`` flags that pick one variant of its templates
+(``csrc/decode_attention.cu``); each variant is a library of its own,
+built at its first launch. Nothing is built or
 loaded at import time: the CPU tests import every module on machines that
 have no ``nvcc``. Each kernel module keeps a plain PyTorch version of the
 same function beside its wrapper (``ref.py`` holds the reference oracles).
@@ -72,28 +84,31 @@ def _nvcc() -> str:
     return found
 
 
-def library_path(source: str) -> Path:
+def library_path(source: str, defines: tuple = ()) -> Path:
     """Where ``csrc/<source>`` builds to: the name carries a hash of the
-    source bytes, the headers of ``csrc/`` and the flags."""
+    source bytes, the headers of ``csrc/``, the flags and ``defines`` (the
+    ``-D`` flags of one variant of the source)."""
     h = hashlib.sha256((CSRC / source).read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + tuple(defines)).encode())
     return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
 
 
-def build(source: str) -> str:
-    """Compile ``csrc/<source>`` unless its hashed library exists; returns
-    the compiler's log (``-Xptxas -v`` register and spill report), empty
-    when nothing was built. Raises with the log when ``nvcc`` fails."""
-    so = library_path(source)
+def build(source: str, defines: tuple = ()) -> str:
+    """Compile ``csrc/<source>`` (with the ``-D`` flags ``defines``) unless
+    its hashed library exists; returns the compiler's log (``-Xptxas -v``
+    register and spill report), empty when nothing was built. Raises with
+    the log when ``nvcc`` fails."""
+    so = library_path(source, defines)
     if so.exists():
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(
         f"{so.name}.{os.getpid()}.{threading.get_ident()}.tmp")
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)],
+        [_nvcc(), *NVCC_FLAGS, *defines, "-o", str(tmp),
+         str(CSRC / source)],
         capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {source}:\n{proc.stdout}"
@@ -103,19 +118,22 @@ def build(source: str) -> str:
 
 
 @functools.cache
-def load_library(source: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<source>``; one handle per process."""
-    build(source)
-    return ctypes.CDLL(str(library_path(source)))
+def load_library(source: str, defines: tuple = ()) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<source>`` (its variant
+    ``defines``); one handle per process."""
+    build(source, defines)
+    return ctypes.CDLL(str(library_path(source, defines)))
 
 
 @functools.cache
-def entry(source: str, symbol: str):
-    """A kernel's C entry point ``symbol`` in ``csrc/<source>``, built and
-    loaded at first use: ``(in0, in1, out, args, stream)``, all
-    ``c_void_p`` (``args`` the packed launch arguments' address)."""
-    fn = getattr(load_library(source), symbol)
-    fn.argtypes = [ctypes.c_void_p] * 5
+def entry(source: str, symbol: str, n: int = 5, defines: tuple = ()):
+    """A kernel's C entry point ``symbol`` in ``csrc/<source>`` (its
+    variant ``defines``), built and loaded at first use: ``n`` arguments,
+    all ``c_void_p``: ``(in0, in1, out, args, stream)``, or more operands
+    after ``in1`` and a scratch after ``out`` (``args`` the packed launch
+    arguments' address)."""
+    fn = getattr(load_library(source, defines), symbol)
+    fn.argtypes = [ctypes.c_void_p] * n
     fn.restype = ctypes.c_int
     return fn
 
@@ -129,32 +147,43 @@ class Signature(NamedTuple):
     refusal: str | None       # why the kernel cannot take it (CUDA only)
     args: ctypes.Structure | None   # None when there is nothing to launch
     args_addr: int
+    scratch: int | None = None  # float32 scratch elements a launch
+                              # takes (0: the entry's slot is null)
+    defines: tuple = ()       # the source's variant a launch runs
 
 
 _COUNT_LOCK = threading.Lock()
 
 
 def launch(wrapper, sig: Signature, a: torch.Tensor, b: torch.Tensor,
-           source: str, symbol: str):
+           source: str, symbol: str, *rest: torch.Tensor):
     """The wrappers' shared path after the cached signature: ``None`` for
     CPU operands (the caller runs its plain version); for CUDA operands the
     device and layout checks, then one launch of ``symbol`` on the current
-    stream, counted on ``wrapper.launches``. Raises for operands on two
-    devices, on another device type, not contiguous, or refused by the
-    kernel (``sig.refusal``), and when CUDA refuses the launch."""
+    stream, counted on ``wrapper.launches``. Operands past ``b`` (``rest``)
+    follow it in the call; a signature with a ``scratch`` passes a float32
+    scratch of that many elements after the output (a null pointer for
+    0); a signature's ``defines`` picks the variant of the source built
+    for it. Raises for operands on two devices, on another device type, not
+    contiguous, or refused by the kernel (``sig.refusal``), and when CUDA
+    refuses the launch."""
     dev = a.get_device()
-    if not (a.is_cuda and b.is_cuda and b.get_device() == dev):
-        if a.device != b.device:
-            raise ValueError(f"operands on {a.device} and {b.device}")
+    if not (a.is_cuda and b.is_cuda and b.get_device() == dev) or (
+            rest and not all(t.is_cuda and t.get_device() == dev
+                             for t in rest)):
+        for t in (b, *rest):
+            if a.device != t.device:
+                raise ValueError(f"operands on {a.device} and {t.device}")
         if a.device.type != "cpu":
             raise ValueError(f"{wrapper.__name__} runs on CUDA or the CPU, "
                              f"not {a.device}")
         return None
-    if not (a.is_contiguous() and b.is_contiguous()):
+    if not (a.is_contiguous() and b.is_contiguous()
+            and all(t.is_contiguous() for t in rest)):
         raise ValueError(f"{wrapper.__name__} takes contiguous operands")
     if dev != torch.cuda.current_device():
         with torch.cuda.device(dev):    # launch on the operands' card
-            return launch(wrapper, sig, a, b, source, symbol)
+            return launch(wrapper, sig, a, b, source, symbol, *rest)
     if sig.refusal:
         raise ValueError(sig.refusal)
     # the output on a's card, the current one (just checked), and its stream
@@ -162,9 +191,14 @@ def launch(wrapper, sig: Signature, a: torch.Tensor, b: torch.Tensor,
     # matvec_host records time the steps)
     out = a.new_empty(sig.out_shape, dtype=sig.out_dtype)
     if sig.n_out:
-        err = entry(source, symbol)(a.data_ptr(), b.data_ptr(),
-                                    out.data_ptr(), sig.args_addr,
-                                    torch.cuda.current_stream(dev).cuda_stream)
+        ptrs = [a.data_ptr(), b.data_ptr(), *[t.data_ptr() for t in rest],
+                out.data_ptr()]
+        if sig.scratch is not None:   # held until launched; freed at
+            scratch = a.new_empty(        # return, reused in stream order
+                sig.scratch, dtype=torch.float32) if sig.scratch else None
+            ptrs.append(0 if scratch is None else scratch.data_ptr())
+        err = entry(source, symbol, len(ptrs) + 2, sig.defines)(
+            *ptrs, sig.args_addr, torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"{wrapper.__name__} launch failed: CUDA "
                                f"error {err}")

@@ -14,7 +14,9 @@ attention softmax over a split axis (a decode cache split on
 'cache_seq') reduces each rank's partial maximum and sum and never
 gathers the logits (:func:`repro_torch.distributed.spmd.softmax`); the
 MoE router's softmax gathers its experts axis, which ``topk`` needs
-whole.
+whole. A decode step on a plain cache writes its new row in place and
+reads the cache through the hand-written ``decode_attention`` kernel
+(:func:`attention_decode`).
 """
 from __future__ import annotations
 
@@ -30,6 +32,8 @@ from ..configs.base import ModelConfig
 from ..distributed.sharding import (as_dtensor, constrain, redistribute,
                                     shard_offset)
 from ..distributed.spmd import einsum, reshape, softmax
+from ..kernels import decode_attention as _decode
+from ..obs import metrics as _metrics
 from .spec import Spec, wide
 
 
@@ -190,9 +194,27 @@ def cross_attention(p, cfg: ModelConfig, x, enc_kv):
     return einsum("bshk,hkd->bsd", o, p["wo"])
 
 
+def in_place(cache) -> bool:
+    """Whether a decode step updates ``cache`` (a leaf) where it lies: a
+    plain tensor, which :func:`attention_decode` writes in place and gives
+    back as the very tensor it took. A DTensor cache, its sequence split
+    over ranks, is built anew (:func:`_write_rows`' ``local_map``,
+    ``lm._stack``)."""
+    return not isinstance(cache, DTensor)
+
+
+@functools.lru_cache(maxsize=None)
+def _slots(n: int, device: torch.device):
+    """``arange(n)`` on ``device``, the batch index of a row write (built
+    once: a launch a call otherwise)."""
+    return torch.arange(n, device=device)
+
+
 def _write_rows(cache, pos, row):
     """``cache`` (B, S_max, KV, hd) with ``row[b]`` set at sequence index
-    ``pos[b]`` of every batch slot ``b``.
+    ``pos[b]`` of every batch slot ``b``. A plain cache is written in place
+    and returned: the port updates the cache where the reference's jitted
+    step takes it donated and returns a new one.
 
     On a DTensor cache whose sequence axis is split ('cache_seq' over
     'model'), DTensor's ``index_put`` would all-gather the whole cache to
@@ -200,9 +222,9 @@ def _write_rows(cache, pos, row):
     block of the sequence and keeps the others (a ``local_map``): the
     cache stays where it is, and only the new row (and ``pos``) is
     brought to the cache's placement over the batch and the KV heads."""
-    if not isinstance(cache, DTensor):
-        rows = (torch.arange(cache.shape[0], device=pos.device), pos)
-        return cache.index_put(rows, row)
+    if in_place(cache):
+        return cache.index_put_((_slots(cache.shape[0], pos.device), pos),
+                                row)
     from torch.distributed.tensor.experimental import local_map
     seq = [isinstance(q, Shard) and q.dim == 1 for q in cache.placements]
     # the row lacks the sequence axis: dims past it move down by one
@@ -238,6 +260,16 @@ def attention_decode(p, cfg: ModelConfig, x, cache_k, cache_v, pos):
     ``pos`` (B,) is the write index. The new k/v row is *set* at ``pos``
     (not added), so a recycled batch slot with stale rows stays correct;
     rows past ``pos`` are masked out of the softmax.
+
+    A plain float32 or bfloat16 cache is written in place
+    (:func:`_write_rows`) and read by
+    :func:`~repro_torch.kernels.decode_attention.decode_attention`, which
+    reads each slot's rows up to ``pos`` once and no others. A DTensor
+    cache (its sequence split over ranks) and one of another dtype (the
+    float64 precision reference) keep :func:`_sdpa`'s masked softmax over
+    the whole cache. The two paths count their calls in
+    ``attention.decode.kernel`` and ``attention.decode.plain``
+    (:mod:`repro_torch.obs.metrics`, always on).
     """
     B, Smax = cache_k.shape[0], cache_k.shape[1]
     q, k, v = _qkv(p, cfg, x, x)
@@ -253,9 +285,14 @@ def attention_decode(p, cfg: ModelConfig, x, cache_k, cache_v, pos):
     cache_v = _write_rows(cache_v, pos, v[:, 0].to(cache_v.dtype))
     cache_k = constrain(cache_k, ("batch", "cache_seq", "kv_heads", None))
     cache_v = constrain(cache_v, ("batch", "cache_seq", "kv_heads", None))
-    valid = (torch.arange(Smax, device=pos.device)[None, :]
-             <= pos[:, None])[:, None, :]                      # (B,1,Smax)
-    o = _sdpa(q, cache_k, cache_v, valid, cfg)
+    if in_place(cache_k) and cache_k.dtype in _decode.DTYPES:
+        _metrics.counter("attention.decode.kernel").inc()
+        o = _decode.decode_attention(q, cache_k, cache_v, pos)
+    else:
+        _metrics.counter("attention.decode.plain").inc()
+        valid = (torch.arange(Smax, device=pos.device)[None, :]
+                 <= pos[:, None])[:, None, :]                  # (B,1,Smax)
+        o = _sdpa(q, cache_k, cache_v, valid, cfg)
     y = einsum("bshk,hkd->bsd", o, p["wo"])
     return constrain(y, ("batch", None, None)), cache_k, cache_v
 
@@ -461,5 +498,5 @@ def unembed(p, cfg: ModelConfig, x):
 
 __all__ = ["MOE_GROUP", "apply_mlp", "apply_moe", "apply_norm",
            "apply_rope", "attention", "attention_decode", "attn_specs",
-           "cross_attention", "embed", "embed_specs", "mlp_specs",
-           "moe_specs", "norm_specs", "unembed"]
+           "cross_attention", "embed", "embed_specs", "in_place",
+           "mlp_specs", "moe_specs", "norm_specs", "unembed"]

@@ -10,7 +10,8 @@ One generic :class:`Model` covers:
 A group is the smallest periodic pattern of sublayers (period =
 lcm(attn_every, moe_every)); parameters are stacked over groups, and the
 reference's ``lax.scan`` over groups becomes a loop over the stacked group
-axis. Caches come back stacked over groups, as the scan returns them.
+axis. Caches come back stacked over groups, as the scan returns them;
+a decode step updates a plain cache in place (:meth:`Model.decode_step`).
 
 The model is functional, like the reference's: parameters (a tree from
 :func:`~repro_torch.models.spec.init_params` or
@@ -38,7 +39,7 @@ from ..distributed.spmd import einsum, reshape
 from ..obs.trace import span as _span
 from . import layers as L
 from . import mamba as M
-from .spec import Spec, stack_specs, torch_dtype, tree_map, wide
+from .spec import Spec, stack_specs, torch_dtype, tree_leaves, tree_map, wide
 
 N_PATCHES = 256  # vlm stub: image patches prepended to the text sequence
 
@@ -83,6 +84,30 @@ def _unstack(tree, n: int) -> list:
         return [{k: parts[k][g] for k in tree} for g in range(n)]
     parts = [_unstack(t, n) for t in tree]
     return [type(tree)(p[g] for p in parts) for g in range(n)]
+
+
+def _in_place(cache) -> bool:
+    """Whether a decode step updates the stacked ``cache`` where it lies
+    (:func:`layers.in_place` of its leaves)."""
+    return L.in_place(tree_leaves(cache)[0])
+
+
+def _write_back(views, new) -> None:
+    """Set each leaf of ``views`` (one group's views into the stacked
+    cache) to the matching leaf of ``new``: nothing where the layer gave
+    the view back itself (attention's K and V, written in place, as
+    :func:`layers.in_place` says), a ``copy_`` otherwise (a Mamba layer's
+    conv and SSM states). Identity, not a data pointer, decides: on
+    ``meta`` every data pointer is 0."""
+    if isinstance(views, torch.Tensor):
+        if new is not views:
+            views.copy_(new)
+    elif isinstance(views, dict):
+        for k in views:
+            _write_back(views[k], new[k])
+    else:
+        for a, b in zip(views, new):
+            _write_back(a, b)
 
 
 def _stack(trees: list):
@@ -266,7 +291,10 @@ class Model(torch.nn.Module):
                 cross_kv=None):
         """The reference's scan over layer groups, as a loop: returns the
         hidden state and the per-group caches stacked over groups (no
-        cache when the groups run checkpointed, :meth:`_checkpoints`)."""
+        cache when the groups run checkpointed, :meth:`_checkpoints`). A
+        decode step on a plain cache writes each group's new cache into
+        its slice of ``cache`` and returns ``cache`` itself
+        (:func:`_in_place`)."""
         decode = cache is not None
         n = self.n_groups
         layers = _unstack(params["layers"], n)
@@ -299,6 +327,10 @@ class Model(torch.nn.Module):
             with _span("model.group", g=g):
                 x, c = body(g, x)
             per_group.append(c)
+        if decode and _in_place(cache):
+            for views, c in zip(caches, per_group):
+                _write_back(views, c)
+            return x, cache
         return x, _stack(per_group)
 
     # -- encoder (whisper) ----------------------------------------------------
@@ -423,7 +455,14 @@ class Model(torch.nn.Module):
         return cache
 
     def decode_step(self, params, cache, tokens, pos):
-        """tokens (B,1); pos (B,) write index. Returns (logits, new cache)."""
+        """tokens (B,1); pos (B,) write index. Returns (logits, new cache).
+
+        Where the reference's jitted step takes the cache donated and
+        returns a new one, the port updates a plain cache in place and
+        returns the same cache object: the new K/V row is written into
+        each layer's slice, a Mamba layer's states copied into theirs,
+        and nothing of the cache is copied whole. A DTensor cache is
+        returned restacked in a new dict."""
         with _span("model.decode_step", batch=tokens.shape[0]):
             cfg = self.cfg
             pos = pos.long()
@@ -436,9 +475,9 @@ class Model(torch.nn.Module):
                 cross_kv=cache.get("cross_kv"))
             x = L.apply_norm(params["final_norm"], cfg, x)
             logits = L.unembed(params["embed"], cfg, x)
-            new_cache = dict(cache)
-            new_cache["layers"] = new_layer_cache
-            return logits, new_cache
+            if new_layer_cache is not cache["layers"]:
+                cache = dict(cache, layers=new_layer_cache)
+            return logits, cache
 
 
 def _sinusoid(S: int, D: int, dtype, device=None):

@@ -40,7 +40,7 @@ from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models.spec import (Spec, abstract_params,  # noqa: E402
                                      axes_tree, init_params,
                                      params_from_numpy, stack_specs,
-                                     tree_leaves)
+                                     tree_leaves, tree_map)
 
 B, S, STEPS = 2, 32, 16
 ATOL = 1e-4
@@ -270,3 +270,55 @@ def test_remat_values():
         assert build_model(cfg, remat=r).remat == r
     with pytest.raises(ValueError):
         build_model(cfg, remat="everything")
+
+
+IN_PLACE = ["olmo-1b", "granite-moe-1b-a400m", "mamba2-370m",
+            "jamba-1.5-large-398b"]
+
+
+@pytest.mark.parametrize("arch", IN_PLACE)
+def test_decode_updates_a_plain_cache_in_place(arch, monkeypatch):
+    """Three decode steps on a plain cache of seeded values, the slots at
+    different positions: ``decode_step`` returns the cache it was given,
+    every leaf keeps its storage, each slot's K/V change at row ``pos[b]``
+    alone, and every leaf (the Mamba states too) equals what the same step
+    gives when the groups' caches are stacked anew (``lm._in_place`` off,
+    on a copy). Every attention layer's call takes the kernel's path."""
+    from repro_torch.models import lm
+    from repro_torch.obs import metrics
+    cfg, model, params, _, _, batch = _case(arch)
+    toks = torch.from_numpy(batch["tokens"]).long()
+    cache = model.init_cache(B, S, torch.float32, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    for leaf in tree_leaves(cache):
+        leaf.copy_(torch.randn(leaf.shape, generator=gen))
+    ptrs = [t.data_ptr() for t in tree_leaves(cache)]
+    n_attn = sum(m == "attn" for m, _ in model.kinds) * model.n_groups
+    kernel = metrics.counter("attention.decode.kernel")
+    plain = metrics.counter("attention.decode.plain")
+
+    with torch.no_grad():
+        for t in range(3):
+            pos = torch.tensor([3 + t, 17 + t])
+            before = tree_map(torch.clone, cache)
+            restacked = tree_map(torch.clone, cache)
+            k0, p0 = kernel.value, plain.value
+            _, new = model.decode_step(params, cache, toks[:, t:t + 1], pos)
+            assert (kernel.value - k0, plain.value - p0) == (n_attn, 0)
+            with monkeypatch.context() as m:
+                m.setattr(lm, "_in_place", lambda c: False)
+                _, want = model.decode_step(params, restacked,
+                                            toks[:, t:t + 1], pos)
+            assert new is cache
+            assert [x.data_ptr() for x in tree_leaves(cache)] == ptrs
+            for i, (a, b) in enumerate(zip(tree_leaves(new),
+                                           tree_leaves(want))):
+                assert torch.equal(a, b), (arch, t, i)
+            at = torch.zeros(B, S, dtype=torch.bool)
+            at[torch.arange(B), pos] = True
+            for name, sub in cache["layers"].items():
+                for kv in set(sub) & {"k", "v"}:
+                    old = before["layers"][name][kv]
+                    moved = (sub[kv] != old).any(-1).any(-1)
+                    assert torch.equal(moved, at.expand_as(moved)), \
+                        (arch, t, name, kv)
