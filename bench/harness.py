@@ -123,8 +123,9 @@ def make_params(specs, default_dtype: str, seed: int, device):
     """The weights of a spec tree, made on ``device`` from ``seed`` in the
     type they are served in: one ``torch.Generator`` draw per dtype for
     every normal leaf together, each leaf a view of it scaled by
-    ``1/sqrt(fan_in)`` (:func:`fan_in`); zeros and ones as the spec says.
-    The same seed gives the same weights.
+    ``1/sqrt(fan_in)`` (:func:`fan_in`); zeros and ones as the spec says,
+    but for Mamba-2's ``A_log`` and ``dt_bias``, drawn as published
+    (:func:`ssm_init`). The same seed gives the same weights.
 
     The spec's own ``scale`` is not used: it puts the token table at 1.0,
     and a random model whose tied head reads a table at 1.0 repeats the
@@ -153,20 +154,69 @@ def make_params(specs, default_dtype: str, seed: int, device):
         t = draws[dt][at[dt]:at[dt] + n].view(s.shape)
         at[dt] += n
         return t.mul_(1.0 / math.sqrt(max(fan_in(s), 1)))
-    return _map_sorted(make, specs)
+    return ssm_init(_map_sorted(make, specs), seed, device)
+
+
+# Mamba-2's published initialisation (``mamba_ssm/modules/mamba2.py``):
+# A uniform in [1, 16], dt log-uniform in [0.001, 0.1]
+A_RANGE = (1.0, 16.0)
+DT_RANGE = (0.001, 0.1)
+SSM_SEED = 0x5D5D_0A11       # set apart from the seed's own stream
+
+
+def ssm_init(params, seed: int, device):
+    """``params`` with every Mamba-2 mixer's ``A_log`` and ``dt_bias``
+    drawn as published, in place of the spec's zeros: ``A_log = log A``
+    and ``dt_bias = softplus⁻¹(dt) = dt + log(-expm1(-dt))``, so that a
+    head keeps its state for ``1 / (A·dt)`` tokens, up to a thousand;
+    zeros (A = 1, dt ≈ 0.7) halve it every token. The draws come from a
+    generator of their own, seeded from ``seed``, leaf by leaf in the
+    tree's sorted order, so that every other leaf is what it would be
+    without them."""
+    import torch
+    leaves = [m for m in _dicts(params) if "A_log" in m and "dt_bias" in m]
+    if not leaves:
+        return params
+    gen = torch.Generator(device=device).manual_seed(
+        (int(seed) + SSM_SEED) % 2 ** 64)
+    for m in leaves:
+        u = torch.rand((2,) + m["A_log"].shape, generator=gen,
+                       dtype=torch.float64, device=device)
+        lo, hi = A_RANGE
+        a = lo + (hi - lo) * u[0]
+        lo, hi = (math.log(x) for x in DT_RANGE)
+        dt = torch.exp(lo + (hi - lo) * u[1])
+        m["A_log"] = torch.log(a).to(m["A_log"].dtype)
+        m["dt_bias"] = (dt + torch.log(-torch.expm1(-dt))).to(
+            m["dt_bias"].dtype)
+    return params
+
+
+def _dicts(tree) -> list:
+    """Every dict of a tree of dicts, itself first, keys sorted."""
+    if not isinstance(tree, dict):
+        return []
+    return [tree] + [d for k in sorted(tree) for d in _dicts(tree[k])]
+
+
+# axes that stack copies of a weight, each with its own input width
+STACKED = ("layers", "experts")
 
 
 def fan_in(spec) -> int:
-    """A weight's input width, from its logical axes, the ``layers`` that
-    stack it left out: a token table's ``embed`` width (the table is also
-    the tied head, which reads the model's width); a projection from the
-    model's width (first axis ``embed``) its first dim; any other, such as
-    attention's output ``(heads, head_dim, embed)``, the product of all
-    dims but the last. The program's own ``init_params`` takes the first
-    dim of a stacked leaf, the layer count, which leaves its weights
-    ``sqrt(width / layers)`` times a unit variance init (11x for olmo-1b)
-    and its attention a hard argmax."""
-    dims = [(n, a) for n, a in zip(spec.shape, spec.axes) if a != "layers"]
+    """A weight's input width, from its logical axes, the ``layers`` and
+    ``experts`` that stack it left out (an expert's ``wi`` reads the
+    model's width, its ``wo`` the expert's width): a token table's
+    ``embed`` width (the table is also the tied head, which reads the
+    model's width); a projection from the model's width (first axis
+    ``embed``) its first dim; any other, such as attention's output
+    ``(heads, head_dim, embed)``, the product of all dims but the last.
+    The program's own ``init_params`` takes the first dim of a stacked
+    leaf, the layer count, which leaves its weights ``sqrt(width /
+    layers)`` times a unit variance init (11x for olmo-1b) and its
+    attention a hard argmax."""
+    dims = [(n, a) for n, a in zip(spec.shape, spec.axes)
+            if a not in STACKED]
     axes = [a for _, a in dims]
     if "vocab" in axes:
         return dims[axes.index("embed")][0]

@@ -185,6 +185,114 @@ def test_weights_repeat_for_a_seed_and_scale_by_a_layers_width():
     assert a["final_norm"] == {}
 
 
+def registry_cfg(name: str, **over) -> dict:
+    """A configuration of the port's registry as a file holds it, cut to
+    ``over``."""
+    import dataclasses
+    from repro_torch.configs.registry import REGISTRY
+    return dict(dataclasses.asdict(REGISTRY[name]), **over)
+
+
+def draw(cfg: dict, seed: int) -> dict:
+    from repro_torch.models.lm import build_model
+    specs = build_model(harness.model_config(cfg)).specs()
+    return harness.make_params(specs, cfg["dtype"], seed, "cpu")
+
+
+def test_expert_leaves_scale_by_their_own_input_width():
+    # 32 experts of width 128 over a model width of 256: the experts axis
+    # stacks them, as the layers axis does, and is no input width
+    D, Ff = 256, 128
+    cfg = registry_cfg("granite-moe-1b-a400m", n_layers=2, d_model=D,
+                       d_ff=Ff, vocab=512, dtype="bfloat16")
+    moe = draw(cfg, 7)["layers"]["sub0"]["moe"]
+    assert moe["wi"].shape == (2, 32, D, 2, Ff)
+    assert moe["router"].dtype == torch.float32
+    for w, width in ((moe["wi"], D), (moe["wo"], Ff), (moe["router"], D)):
+        assert float(w.float().std()) == pytest.approx(1 / math.sqrt(width),
+                                                       rel=0.1)
+
+
+def mixers(params) -> list:
+    """Every Mamba-2 mixer's leaves in a tree of weights."""
+    if not isinstance(params, dict):
+        return []
+    if "A_log" in params:
+        return [params]
+    return [m for k in sorted(params) for m in mixers(params[k])]
+
+
+@pytest.mark.parametrize("name,over", [
+    ("mamba2-370m", dict(n_layers=4, d_model=64, d_inner=128,
+                         ssm_headdim=16, ssm_state=16, vocab=512)),
+    ("jamba-1.5-large-398b", dict(n_layers=8, d_model=64, n_heads=4,
+                                  n_kv_heads=2, head_dim=16, d_ff=128,
+                                  n_experts=4, d_inner=128, ssm_headdim=16,
+                                  vocab=512)),
+])
+def test_mamba2_A_and_dt_are_drawn_as_published(name, over):
+    cfg = registry_cfg(name, dtype="bfloat16", **over)
+    a, b, c = (draw(cfg, s) for s in (2 ** 33 + 1, 2 ** 33 + 1, 2 ** 33 + 2))
+    ma, mb, mc = mixers(a), mixers(b), mixers(c)
+    assert ma and len(ma) == len(mb) == len(mc)
+    A = torch.cat([-torch.exp(m["A_log"]).flatten() for m in ma])
+    dt = torch.cat([torch.nn.functional.softplus(m["dt_bias"]).flatten()
+                    for m in ma])
+    assert A.dtype == dt.dtype == torch.float32
+    # A in [-16, -1], dt in [0.001, 0.1], both to float32's rounding
+    assert float(A.min()) >= -16 * (1 + 1e-6)
+    assert float(A.max()) <= -1 * (1 - 1e-6)
+    assert float(dt.min()) >= 0.001 * (1 - 1e-5)
+    assert float(dt.max()) <= 0.1 * (1 + 1e-5)
+    # spread over the ranges, not clustered at a zero's A = -1
+    assert float(A.max() - A.min()) > 8 and float(dt.max() / dt.min()) > 10
+    for x, y, z in zip(ma, mb, mc):
+        for k in ("A_log", "dt_bias"):
+            assert torch.equal(x[k], y[k]) and not torch.equal(x[k], z[k])
+
+
+def digest(params, skip=()) -> str:
+    """A checksum of every leaf's bytes and path, leaves whose path ends
+    in one of ``skip`` left out."""
+    import hashlib
+    h = hashlib.sha256()
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                walk(tree[k], path + (k,))
+        elif not any(path[-len(s):] == s for s in skip):
+            h.update("/".join(path).encode())
+            h.update(tree.contiguous().flatten().view(torch.uint8)
+                     .numpy().tobytes())
+    walk(params, ())
+    return h.hexdigest()
+
+
+@pytest.mark.parametrize("name,over,skip,want", [
+    ("olmo-1b", SMALL, (),
+     "2b6ce18d0d0fe637dd2cc7218b94f9238da0237a98a00f3c87e71caa4f8bd81a"),
+    ("granite-moe-1b-a400m",
+     dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=32,
+          vocab=512, n_experts=8, experts_per_tok=2),
+     (("moe", "wi"), ("moe", "wo")),
+     "78f3c6ef8b0cd39a16d3b0f82f435b6175b0b4532119c20d98bcba4cbd1bf731"),
+    ("mamba2-370m",
+     dict(n_layers=2, d_model=64, d_inner=128, ssm_headdim=32, ssm_state=16,
+          vocab=512),
+     (("mamba", "A_log"), ("mamba", "dt_bias")),
+     "4205fa6ba0c8cdd849ae48f6c1c6c32ffd7ff2d1bf6b2dadf093f29671245daa"),
+])
+def test_other_leaves_are_drawn_as_before(name, over, skip, want):
+    # checksums of the draws before the experts axis was stacked and
+    # Mamba-2's A and dt were drawn: a dense model's weights and every
+    # other leaf, the float32 router among them, are unchanged bit for bit
+    cfg = (dict(harness.config(name), **over) if name == "olmo-1b"
+           else registry_cfg(name, **over))
+    cfg["dtype"] = "bfloat16"
+    assert digest(draw(cfg, 2 ** 33 + 1), skip) == want
+
+
 @pytest.mark.parametrize("name", ["olmo-1b"])
 def test_reference_equals_the_program_in_float32(name):
     from repro_torch.models.lm import build_model
