@@ -29,8 +29,10 @@ each printing one JSON line per record:
              choices of its plan (record ``bconv_modes``), and for
              decode_attention at the chat and rag cells' decode shapes
              (olmo-1b, 32 slots at rows 256–1280 and 16 at 1536–1984 of a
-             2048-row bf16 cache, rows past ``pos`` at NaN; within one
-             bf16 rounding plus 1e-5 of the values' scale);
+             2048-row bf16 cache) and at granite-4.0-h-micro's (GQA 32 on
+             8 heads of 64, 32 slots at rows 2048–8255 of an 8448-row
+             cache, the logits divided by 64), rows past ``pos`` at NaN;
+             within one bf16 rounding plus 1e-5 of the values' scale;
              the compared call's launch count; kernel, plain and library
              times from CUDA events — per call, and for the kernel and the
              library also per launch replayed from a CUDA graph, without the
@@ -140,16 +142,17 @@ each printing one JSON line per record:
 
 8. lm      — the model stack's serving path on ``cuda`` at full width,
              weights from a seeded ``torch.Generator``: olmo-1b (16 layers,
-             d_model 2048, vocab 50304) and mamba2-370m (48 layers) in
+             d_model 2048, vocab 50304), mamba2-370m (48 layers) and
+             granite-4.0-h-micro (40 layers, 4 of them attention) in
              their bf16, each serving 8 requests of 16 new tokens on 4
              slots of a 128-row cache through ``launch.serve.serve`` (the
              CLI's path): per-request prefill ms and every decode step's ms
              from CUDA events, tokens per second, peak memory (and what
              earlier phases still held when it began), and the
              decode step's bound (its parameter bytes, and its cache, read
-             once at 3.35 TB/s). Both in float32: one 16-token prompt's
-             forward logits on the card, on the CPU, and on the CPU in
-             float64 agree pairwise (card-CPU, card-f64, CPU-f64) within
+             once at 3.35 TB/s). olmo-1b and mamba2-370m in float32: one
+             16-token prompt's forward logits on the card, on the CPU, and
+             on the CPU in float64 agree pairwise (card-CPU, card-f64, CPU-f64) within
              1e-2 of the float64 logits' largest magnitude, and so do 16
              decode steps on the card against its forward; in float64 the
              first 4 decode steps equal the forward within 1e-9 of it. A matpim-bnn forward (4 × 64 tokens) at
@@ -158,8 +161,9 @@ each printing one JSON line per record:
              the bf16 serving runs launch ``decode_attention`` once an
              attention layer a decode step: olmo-1b's launches must equal
              16 × its decode steps and ``attention.decode.kernel``'s calls,
-             with ``attention.decode.plain`` at 0, and mamba2-370m's 0
-             (record fields ``decode_attention_launches``,
+             with ``attention.decode.plain`` at 0, granite-4.0-h-micro's
+             4 × its decode steps, and mamba2-370m's 0 (record fields
+             ``decode_attention_launches``,
              ``attention_decode_calls``).
 9. train   — the model stack's training half on ``cuda``. Record ``train``:
              olmo-1b at full width in bf16 through ``launch.train.train``
@@ -569,28 +573,33 @@ def rows_splitk(torch):
     return rows
 
 
-# decode_attention's served shapes: olmo-1b's 16 KV heads of 128 in bf16 over
-# a 2048-row cache, the chat cell's 32 slots at rows 256-1280 and the rag
-# cell's 16 at rows 1536-1984 (bench/mixes/)
-DECODE_SHAPES = (("chat", 32, 256, 1280), ("rag", 16, 1536, 1984))
+# decode_attention's served shapes (bench/mixes/), bf16 throughout: olmo-1b's
+# 16 heads of 128 on 16 KV heads over a 2048-row cache, the chat cell's 32
+# slots at rows 256-1280 and the rag cell's 16 at rows 1536-1984; and
+# granite-4.0-h-micro's GQA of 32 heads of 64 on 8 KV heads over an 8448-row
+# cache, 32 slots at rows 2048-8255 (long documents), its logits divided by
+# 64 (1 / attention_multiplier) in place of sqrt(64).
+# (name, B, S_max, H, KV, hd, lowest pos, highest pos, logit divisor or None)
+DECODE_SHAPES = (("chat", 32, 2048, 16, 16, 128, 256, 1280, None),
+                 ("rag", 16, 2048, 16, 16, 128, 1536, 1984, None),
+                 ("granite", 32, 8448, 32, 8, 64, 2048, 8255, 64.0))
 
 
 def rows_decode_attention(torch):
     """``decode_attention`` at the served shapes against its plain version
     on the card, rows past ``pos`` at NaN; the library yardstick is
     ``F.scaled_dot_product_attention`` over the whole cache under the
-    ``pos`` mask, timed only (the port never calls it). Bound: the valid
-    rows of k and v read once, q read and the output written once
-    (``bytes_needed``), against 4 flops a cached element a query head."""
+    ``pos`` mask (its GQA, and the same scale), timed only (the port never
+    calls it). Bound: the valid rows of k and v read once, q read and the
+    output written once (``bytes_needed``), against 4 flops a cached
+    element a query head."""
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import (bytes_needed,
                                                       decode_attention,
                                                       decode_attention_plain)
     g = torch.Generator(device="cuda").manual_seed(12)
-    H = KV = 16
-    S, hd = 2048, 128
     rows = []
-    for name, B, lo, hi in DECODE_SHAPES:
+    for name, B, S, H, KV, hd, lo, hi, divisor in DECODE_SHAPES:
         pos = torch.randint(lo, hi + 1, (B,), generator=g, device="cuda")
         q = torch.randn((B, 1, H, hd), generator=g,
                         device="cuda").bfloat16()
@@ -601,15 +610,19 @@ def rows_decode_attention(torch):
         lib_k, lib_v = (torch.nan_to_num(t).transpose(1, 2) for t in (k, v))
         mask = ~past[:, None, None, :]
         lib_q = q.transpose(1, 2)
+        lib_scale = None if divisor is None else 1.0 / divisor
 
-        def library(q=lib_q, k=lib_k, v=lib_v, m=mask):
-            return F.scaled_dot_product_attention(q, k, v, attn_mask=m)
+        def library(q=lib_q, k=lib_k, v=lib_v, m=mask, sc=lib_scale,
+                    gqa=H != KV):
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=m,
+                                                  scale=sc, enable_gqa=gqa)
         scale = float(torch.nan_to_num(v).float().abs().max())
         valid = int((pos + 1).sum())
+        args = (q, k, v, pos) if divisor is None else (q, k, v, pos, divisor)
         rows.append(kernel_row(
-            torch, "decode_attention", [name, B, S, KV, hd, "bf16"],
-            decode_attention, decode_attention_plain, library,
-            (q, k, v, pos),
+            torch, "decode_attention",
+            [name, B, S, H, KV, hd, "bf16", divisor],
+            decode_attention, decode_attention_plain, library, args,
             bytes_needed(pos.tolist(), KV, hd, 2, H, 2),
             [(4 * valid * H * hd, F32_FLOPS_PER_S)],
             tol=(2.0 ** -7, 1e-5 * scale)))
@@ -1844,8 +1857,10 @@ def phase_mesh(kinds: dict, serial: dict, card: str) -> None:
         "slot_of": {name: t.device for name, t in tickets.items()}})
 
 
-# full-width model configs the lm phase serves in bf16 through the launcher
-LM_SERVED = ("olmo-1b", "mamba2-370m")
+# full-width model configs the lm phase serves in bf16 through the launcher,
+# and those it also checks in float32
+LM_SERVED = ("olmo-1b", "mamba2-370m", "granite-4.0-h-micro")
+LM_F32 = ("olmo-1b", "mamba2-370m")
 LM_PROMPT = 16
 # float32 against float64 at full width, as a share of the float64 logits'
 # largest magnitude (~170-210 on seeded weights). Sound float32 runs read at
@@ -1957,7 +1972,7 @@ def lm_serve(torch, arch: str) -> dict:
     dec = sorted(tm["decode_ms"])
     launches = decode.launches
     calls = [c.value - v for c, v in zip(paths, calls0)]
-    attn = {"olmo-1b": cfg.n_layers, "mamba2-370m": 0}[arch]
+    attn = sum(cfg.is_attn_layer(i) for i in range(cfg.n_layers))
     check(launches == attn * len(dec) and calls == [launches, 0],
           f"{arch}: decode_attention launched {launches} times in "
           f"{len(dec)} decode steps of {attn} attention layers; "
@@ -1987,13 +2002,14 @@ def lm_serve(torch, arch: str) -> dict:
 
 
 def phase_lm(torch, card: str) -> None:
-    """The model stack's serving path on the card at full width: olmo-1b
-    and mamba2-370m served in bf16 through the launcher (per-request
-    prefill ms and decode-step ms from CUDA events, tokens per second,
-    peak memory, the decode step's bytes bound), both checked in float32
-    (card against CPU, decode against the forward), and a forward of
-    matpim-bnn. Any mismatch raises. Returns decode_attention's launches
-    in the two bf16 serving runs."""
+    """The model stack's serving path on the card at full width: olmo-1b,
+    mamba2-370m and granite-4.0-h-micro served in bf16 through the
+    launcher (per-request prefill ms and decode-step ms from CUDA events,
+    tokens per second, peak memory, the decode step's bytes bound),
+    olmo-1b and mamba2-370m checked in float32 (card against CPU, decode
+    against the forward), and a forward of matpim-bnn. Any mismatch
+    raises. Returns decode_attention's launches in the bf16 serving
+    runs."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.models.spec import init_params
@@ -2004,7 +2020,7 @@ def phase_lm(torch, card: str) -> None:
     check((olmo["n_layers"], olmo["d_model"], olmo["vocab"]) ==
           (16, 2048, 50304) and olmo["dtype"] == "bfloat16",
           f"olmo-1b served at {olmo}")
-    f32 = {arch: lm_check_f32(torch, arch) for arch in LM_SERVED}
+    f32 = {arch: lm_check_f32(torch, arch) for arch in LM_F32}
     cfg = get_config("matpim-bnn")
     model = build_model(cfg)
     params = init_params(model.specs(),

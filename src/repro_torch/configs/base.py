@@ -50,6 +50,16 @@ class ModelConfig:
     # --- MatPIM feature: binary (XNOR-popcount) FFN variant ---
     binary_ffn: bool = False
 
+    # --- the port's own fields (the reference's ModelConfig has none of
+    # them); each default is the arithmetic of a config without it, and
+    # the model branches on the value, so a default adds no operation ---
+    norm_eps: float = 1e-6
+    embedding_multiplier: float = 1.0     # μP: the token embedding's scale
+    attention_multiplier: Optional[float] = None   # logit scale; 1/sqrt(hd)
+    residual_multiplier: float = 1.0      # μP: each branch before its add
+    logits_scaling: float = 1.0           # μP: the logits are divided by it
+    ssm_gated_norm: bool = False          # Mamba-2's RMSNorm(y·silu(z))·w
+
     # ----------------------------------------------------------------------
 
     @property

@@ -71,7 +71,8 @@ struct DecodeArgs {
   int chunks;           // CTAs a slot's rows are split over
   int chunk_rows;       // rows a chunk
   int c_bf16, q_bf16;   // cache and q dtypes: bfloat16 or float32
-  float scale;          // sqrt(hd): the logits are divided by it
+  float scale;          // the logits are divided by it: sqrt(hd), or the
+                        // inverse of the model's attention multiplier
 };
 
 namespace {

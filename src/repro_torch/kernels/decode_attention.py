@@ -21,9 +21,11 @@ on ``meta``. Each variant of the CUDA source (:func:`variant`: the cache's
 dtype, the query heads a CTA takes, the vectors a lane holds) builds into
 a library of its own at its first launch, one kernel pair for ``nvcc``.
 
-The arithmetic is ``_sdpa``'s: float32 logits divided by ``sqrt(hd)``, rows
-past ``pos`` out of the softmax (the reference's ``-1e30`` gives them weight
-0 exactly), a float32 softmax and weighted sum, the result in q's dtype.
+The arithmetic is ``_sdpa``'s: float32 logits divided by ``scale``
+(``sqrt(hd)`` unless the model's ``attention_multiplier`` sets another,
+``layers.logit_divisor``), rows past ``pos`` out of the softmax (the
+reference's ``-1e30`` gives them weight 0 exactly), a float32 softmax and
+weighted sum, the result in q's dtype.
 
 What bounds it. Device memory: the rows at or below ``pos``, read once
 (``bytes_needed``), against 2 FMAs per element read for each query head
@@ -40,7 +42,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 from torch.utils.flop_counter import register_flop_formula
@@ -118,10 +120,11 @@ class _Args(ctypes.Structure):
 
 
 def decode_attention_plain(q: torch.Tensor, cache_k: torch.Tensor,
-                           cache_v: torch.Tensor,
-                           pos: torch.Tensor) -> torch.Tensor:
+                           cache_v: torch.Tensor, pos: torch.Tensor,
+                           scale: Optional[float] = None) -> torch.Tensor:
     """Plain PyTorch version: ``_sdpa``'s arithmetic under the ``pos``
-    mask, in float32 (float64 for a float64 q). The rows past ``pos`` get
+    mask (the logits divided by ``scale``, ``sqrt(hd)`` if None), in
+    float32 (float64 for a float64 q). The rows past ``pos`` get
     weight 0 and their values are zeroed before the weighted sum, so
     whatever they hold (a stale slot's rows, NaN) never reaches the
     output, as the kernel never reads them."""
@@ -132,7 +135,7 @@ def decode_attention_plain(q: torch.Tensor, cache_k: torch.Tensor,
              <= pos[:, None])                                  # (B, S)
     qg = q.reshape(B, 1, KV, H // KV, hd)
     logits = torch.einsum("bqkrh,bskh->bkrqs", qg.to(acc), cache_k.to(acc))
-    logits = logits / math.sqrt(hd)
+    logits = logits / (math.sqrt(hd) if scale is None else scale)
     logits = logits.masked_fill(~valid[:, None, None, None, :], -1e30)
     w = torch.softmax(logits, dim=-1)
     v = cache_v.to(acc).masked_fill(~valid[:, :, None, None], 0)
@@ -142,7 +145,7 @@ def decode_attention_plain(q: torch.Tensor, cache_k: torch.Tensor,
 
 @functools.lru_cache(maxsize=256)
 def _signature(q_shape, k_shape, v_shape, pos_shape, q_dtype, k_dtype,
-               v_dtype, pos_dtype) -> Signature:
+               v_dtype, pos_dtype, scale=None) -> Signature:
     """The checks, output shape, refusal, scratch and packed launch
     arguments of one shape and dtype signature (a raise is not cached)."""
     if len(q_shape) != 4 or q_shape[1] != 1 or len(k_shape) != 4:
@@ -175,16 +178,17 @@ def _signature(q_shape, k_shape, v_shape, pos_shape, q_dtype, k_dtype,
     p = decode_launch_plan(B, H, KV, S, hd, k_dtype)
     args = _Args(B, H, KV, S, hd, H // KV, p.rb, p.groups, p.lanes, p.nvec,
                  p.chunks, p.chunk_rows, int(k_dtype == torch.bfloat16),
-                 int(q_dtype == torch.bfloat16), math.sqrt(hd))
+                 int(q_dtype == torch.bfloat16),
+                 math.sqrt(hd) if scale is None else scale)
     scratch = B * KV * p.groups * p.chunks * p.rb * (hd + 2) \
         if p.chunks > 1 else 0
     return Signature(out_shape, q_dtype, B * H * hd, None, args,
                      ctypes.addressof(args), scratch, variant(k_dtype, p))
 
 
-def _check(q, cache_k, cache_v, pos) -> Signature:
+def _check(q, cache_k, cache_v, pos, scale) -> Signature:
     return _signature(q.shape, cache_k.shape, cache_v.shape, pos.shape,
-                      q.dtype, cache_k.dtype, cache_v.dtype, pos.dtype)
+                      q.dtype, cache_k.dtype, cache_v.dtype, pos.dtype, scale)
 
 
 # the operator: defined with an implementation for CPU and CUDA tensors
@@ -192,23 +196,23 @@ def _check(q, cache_k, cache_v, pos) -> Signature:
 # wrapper would add ~20 us of host time a call, ~4 us this way)
 _LIB = torch.library.Library("repro_torch", "DEF")
 _LIB.define("decode_attention(Tensor q, Tensor cache_k, Tensor cache_v, "
-            "Tensor pos) -> Tensor")
+            "Tensor pos, float? scale=None) -> Tensor")
 
 
-def _run(q, cache_k, cache_v, pos):
-    sig = _check(q, cache_k, cache_v, pos)
+def _run(q, cache_k, cache_v, pos, scale=None):
+    sig = _check(q, cache_k, cache_v, pos, scale)
     if cache_k.is_cuda and (cache_k.data_ptr() | cache_v.data_ptr()) % 16:
         raise ValueError("decode_attention's kernel reads k and v in "
                          "16-byte vectors: their data must be 16-byte "
                          "aligned")
     out = launch(decode_attention, sig, q.contiguous(), cache_k, SOURCE,
                  SYMBOL, cache_v, pos)
-    return decode_attention_plain(q, cache_k, cache_v, pos) if out is None \
-        else out
+    return decode_attention_plain(q, cache_k, cache_v, pos, scale) \
+        if out is None else out
 
 
-def _fake(q, cache_k, cache_v, pos):
-    _check(q, cache_k, cache_v, pos)
+def _fake(q, cache_k, cache_v, pos, scale=None):
+    _check(q, cache_k, cache_v, pos, scale)
     return q.new_empty(q.shape)
 
 
@@ -229,16 +233,17 @@ def _flops(q_shape, k_shape, *args, **kwargs) -> int:
 
 
 def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
-                     cache_v: torch.Tensor, pos: torch.Tensor
-                     ) -> torch.Tensor:
+                     cache_v: torch.Tensor, pos: torch.Tensor,
+                     scale: Optional[float] = None) -> torch.Tensor:
     """Attention of q ``(B, 1, H, hd)`` over the rows ``s <= pos[b]`` of
     k and v ``(B, S_max, KV, hd)`` (``pos`` int64 ``(B,)``, each in ``[0,
-    S_max)``) → ``(B, 1, H, hd)`` in q's dtype.
+    S_max)``) → ``(B, 1, H, hd)`` in q's dtype, the logits divided by
+    ``scale`` (``sqrt(hd)`` if None).
 
     CUDA tensors go to the kernel (one call; ``decode_attention.launches``
     counts calls), CPU tensors to :func:`decode_attention_plain`, ``meta``
     ones to an empty result of q's shape."""
-    return _OP(q, cache_k, cache_v, pos)
+    return _OP(q, cache_k, cache_v, pos, scale)
 
 
 def bytes_needed(pos, KV: int, hd: int, itemsize: int, H: int,

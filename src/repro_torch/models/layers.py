@@ -60,11 +60,12 @@ def apply_norm(p, cfg: ModelConfig, x):
     acc = wide(x.dtype)
     xf = x.to(acc)
     if cfg.norm == "rmsnorm":
-        y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + 1e-6)
+        ms = (xf * xf).mean(-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + cfg.norm_eps)
         return (y * p["w"].to(acc)).to(x.dtype)
     mu = xf.mean(-1, keepdim=True)
     var = (xf - mu).square().mean(-1, keepdim=True)
-    y = (xf - mu) * torch.rsqrt(var + 1e-6)
+    y = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
     if cfg.norm == "layernorm":
         y = y * p["w"].to(acc) + p["b"].to(acc)
     return y.to(x.dtype)
@@ -139,13 +140,23 @@ def _qkv(p, cfg: ModelConfig, xq, xkv):
     return q, k, v
 
 
+def logit_divisor(cfg: Optional[ModelConfig], hd: int) -> float:
+    """What attention's logits over heads of ``hd`` are divided by:
+    ``sqrt(hd)``, or ``1 / attention_multiplier`` where the config sets one
+    (μP's ``1/hd``: a power of two there, so dividing equals multiplying
+    by the multiplier exactly). The decode kernel divides by the same
+    float."""
+    m = getattr(cfg, "attention_multiplier", None)
+    return math.sqrt(hd) if m is None else 1.0 / m
+
+
 def _sdpa(q, k, v, mask, cfg: ModelConfig):
     """q (B,Sq,H,hd); k/v (B,Skv,KV,hd); mask (B|1, Sq, Skv) or None.
 
-    The reference's arithmetic, written out: float32 logits scaled by
-    ``1/sqrt(hd)``, masked to ``-1e30``, a float32 softmax and a float32
-    weighted sum, cast back to q's dtype (float64 throughout for a float64
-    model, :func:`~repro_torch.models.spec.wide`).
+    The reference's arithmetic, written out: float32 logits divided by
+    ``sqrt(hd)`` (:func:`logit_divisor`), masked to ``-1e30``, a float32
+    softmax and a float32 weighted sum, cast back to q's dtype (float64
+    throughout for a float64 model, :func:`~repro_torch.models.spec.wide`).
 
     On a decode cache split over its sequence ('cache_seq'), the logits
     stay split: the softmax reduces each rank's maximum and sum
@@ -159,7 +170,7 @@ def _sdpa(q, k, v, mask, cfg: ModelConfig):
     rep = H // KV
     qg = reshape(q, B, Sq, KV, rep, hd)
     logits = einsum("bqkrh,bskh->bkrqs", qg.to(acc), k.to(acc))
-    logits = logits / math.sqrt(hd)
+    logits = logits / logit_divisor(cfg, hd)
     if mask is not None:
         logits = logits.masked_fill(~mask[:, None, None, :, :], -1e30)
     w = softmax(logits, dim=-1)
@@ -287,7 +298,8 @@ def attention_decode(p, cfg: ModelConfig, x, cache_k, cache_v, pos):
     cache_v = constrain(cache_v, ("batch", "cache_seq", "kv_heads", None))
     if in_place(cache_k) and cache_k.dtype in _decode.DTYPES:
         _metrics.counter("attention.decode.kernel").inc()
-        o = _decode.decode_attention(q, cache_k, cache_v, pos)
+        o = _decode.decode_attention(q, cache_k, cache_v, pos,
+                                     logit_divisor(cfg, q.shape[-1]))
     else:
         _metrics.counter("attention.decode.plain").inc()
         valid = (torch.arange(Smax, device=pos.device)[None, :]

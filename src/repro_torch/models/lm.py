@@ -4,7 +4,10 @@
 One generic :class:`Model` covers:
   dense / moe / vlm — decoder-only stacks (uniform or periodic layer groups)
   ssm               — mamba2 (attention-free)
-  hybrid            — jamba (mamba + attn 1:7, MoE every 2nd layer)
+  hybrid            — jamba (mamba + attn 1:7, MoE every 2nd layer),
+                      granite-4.0-h-micro (mamba + attn 1:9, a port-only
+                      config: μP multipliers, ``_embed``, ``_residual``,
+                      ``_logits``)
   encdec            — whisper (bidirectional encoder + causal decoder w/ cross)
 
 A group is the smallest periodic pattern of sublayers (period =
@@ -36,6 +39,7 @@ from ..core.engine import resolve_device
 from ..distributed.sharding import (constrain, current_mesh, current_rules,
                                      use_mesh)
 from ..distributed.spmd import einsum, reshape
+from ..obs import metrics as _metrics
 from ..obs.trace import span as _span
 from . import layers as L
 from . import mamba as M
@@ -92,22 +96,29 @@ def _in_place(cache) -> bool:
     return L.in_place(tree_leaves(cache)[0])
 
 
-def _write_back(views, new) -> None:
+def _write_back(views, new) -> int:
     """Set each leaf of ``views`` (one group's views into the stacked
     cache) to the matching leaf of ``new``: nothing where the layer gave
     the view back itself (attention's K and V, written in place, as
     :func:`layers.in_place` says), a ``copy_`` otherwise (a Mamba layer's
     conv and SSM states). Identity, not a data pointer, decides: on
-    ``meta`` every data pointer is 0."""
+    ``meta`` every data pointer is 0. Returns the bytes copied."""
     if isinstance(views, torch.Tensor):
-        if new is not views:
-            views.copy_(new)
-    elif isinstance(views, dict):
-        for k in views:
-            _write_back(views[k], new[k])
-    else:
-        for a, b in zip(views, new):
-            _write_back(a, b)
+        if new is views:
+            return 0
+        views.copy_(new)
+        return new.nbytes
+    if isinstance(views, dict):
+        return sum(_write_back(views[k], new[k]) for k in views)
+    return sum(_write_back(a, b) for a, b in zip(views, new))
+
+
+def _residual(cfg: ModelConfig, x, y):
+    """``x + y``, the branch ``y`` scaled by μP's ``residual_multiplier``
+    first where the config sets one."""
+    if cfg.residual_multiplier != 1.0:
+        y = y * cfg.residual_multiplier
+    return x + y
 
 
 def _stack(trees: list):
@@ -243,13 +254,16 @@ class Model(torch.nn.Module):
                                         positions3=positions3)
                 new_cache = {"k": k, "v": v}
         else:
-            if decode:
-                y, conv, ssm = M.apply_mamba_step(p["mamba"], cfg, h,
-                                                  cache["conv"], cache["ssm"])
-                new_cache = {"conv": conv, "ssm": ssm}
-            else:
-                y, new_cache = M.apply_mamba(p["mamba"], cfg, h)
-        x = x + y
+            S = h.shape[1]
+            with _span("model.mamba", tokens=h.shape[0] * S,
+                       tail=0 if decode else M.tail_rows(S, M.CHUNK)):
+                if decode:
+                    y, conv, ssm = M.apply_mamba_step(
+                        p["mamba"], cfg, h, cache["conv"], cache["ssm"])
+                    new_cache = {"conv": conv, "ssm": ssm}
+                else:
+                    y, new_cache = M.apply_mamba(p["mamba"], cfg, h)
+        x = _residual(cfg, x, y)
         if cross_kv is not None:
             h = L.apply_norm(p["cross_norm"], cfg, x)
             x = x + L.cross_attention(p["cross_attn"], cfg, h, cross_kv)
@@ -261,7 +275,7 @@ class Model(torch.nn.Module):
                     y = y + L.apply_mlp(p["dense_mlp"], cfg, h)
             else:
                 y = L.apply_mlp(p["mlp"], cfg, h)
-            x = x + y
+            x = _residual(cfg, x, y)
         return x, new_cache
 
     def _checkpoints(self) -> bool:
@@ -328,8 +342,10 @@ class Model(torch.nn.Module):
                 x, c = body(g, x)
             per_group.append(c)
         if decode and _in_place(cache):
-            for views, c in zip(caches, per_group):
-                _write_back(views, c)
+            copied = sum(_write_back(views, c)
+                         for views, c in zip(caches, per_group))
+            if copied:
+                _metrics.counter("mamba.decode.state_copy_bytes").inc(copied)
             return x, cache
         return x, _stack(per_group)
 
@@ -374,7 +390,7 @@ class Model(torch.nn.Module):
             tokens = batch["tokens"]
             B, S = tokens.shape
             dev = tokens.device
-            x = L.embed(params["embed"], cfg, tokens)
+            x = self._embed(params, tokens)
             positions3 = None
             if cfg.family == "vlm":
                 patches = einsum("bpd,de->bpe", batch["patch_embeds"],
@@ -392,9 +408,22 @@ class Model(torch.nn.Module):
 
             x, caches = self._groups(params, x, pos, positions3,
                                      cross_kv=cross_kv)
-            x = L.apply_norm(params["final_norm"], cfg, x)
-            logits = L.unembed(params["embed"], cfg, x)
-            return logits, caches
+            return self._logits(params, x), caches
+
+    def _embed(self, params, tokens):
+        """The tokens' rows of the table, times μP's
+        ``embedding_multiplier`` where the config sets one."""
+        x = L.embed(params["embed"], self.cfg, tokens)
+        m = self.cfg.embedding_multiplier
+        return x * m if m != 1.0 else x
+
+    def _logits(self, params, x):
+        """The final norm and the unembedding, the logits divided by μP's
+        ``logits_scaling`` where the config sets one."""
+        x = L.apply_norm(params["final_norm"], self.cfg, x)
+        logits = L.unembed(params["embed"], self.cfg, x)
+        d = self.cfg.logits_scaling
+        return logits / d if d != 1.0 else logits
 
     # -- decode ---------------------------------------------------------------
 
@@ -466,15 +495,14 @@ class Model(torch.nn.Module):
         with _span("model.decode_step", batch=tokens.shape[0]):
             cfg = self.cfg
             pos = pos.long()
-            x = L.embed(params["embed"], cfg, tokens)
+            x = self._embed(params, tokens)
             if cfg.family == "encdec":
                 x = x + _sinusoid_at(pos, cfg.d_model, x.dtype)[:, None, :]
             positions3 = None  # vlm decode: text-only continuation (stub)
             x, new_layer_cache = self._groups(
                 params, x, pos, positions3, cache=cache["layers"],
                 cross_kv=cache.get("cross_kv"))
-            x = L.apply_norm(params["final_norm"], cfg, x)
-            logits = L.unembed(params["embed"], cfg, x)
+            logits = self._logits(params, x)
             if new_layer_cache is not cache["layers"]:
                 cache = dict(cache, layers=new_layer_cache)
             return logits, cache

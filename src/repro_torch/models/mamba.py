@@ -6,8 +6,13 @@ O(1)-state decode step, the port of ``src/repro/models/mamba.py``.
 
 Chunked algorithm: an intra-chunk quadratic attention-like term plus an
 inter-chunk state recurrence, a loop over chunks where the reference runs
-``lax.scan``. The state scan is not a matvec-with-reduction shape, so the
-paper's technique does not apply here (docs/ARCHITECTURE.md §Model stack).
+``lax.scan``. A sequence of any length is taken: a last chunk shorter
+than the others (ragged) is padded with rows that neither decay nor add to
+the state (:func:`ssd_chunked`), where the reference asserts a multiple.
+Under ``ssm_gated_norm`` the gated output ``y·silu(z)`` goes through
+Mamba-2's RMSNorm and its weight before ``out_proj`` (:func:`_gate`).
+The state scan is not a matvec-with-reduction shape, so the paper's
+technique does not apply here (docs/ARCHITECTURE.md §Model stack).
 The scan computes in float32 (float64 for a float64 model, :func:`.spec.wide`).
 """
 from __future__ import annotations
@@ -21,7 +26,11 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from ..configs.base import ModelConfig
 from ..distributed.sharding import as_dtensor, constrain, redistribute
 from ..distributed.spmd import cumsum, einsum, reshape
+from ..obs import metrics as _metrics
+from ..obs.trace import span as _span
 from .spec import Spec, wide
+
+CHUNK = 256   # the SSD's chunk (Mamba-2's and Granite 4.0's chunk_size)
 
 
 def mamba_specs(cfg: ModelConfig):
@@ -30,7 +39,7 @@ def mamba_specs(cfg: ModelConfig):
     N = cfg.ssm_state
     G = 1  # single B/C group
     conv_ch = DI + 2 * G * N
-    return {
+    s = {
         # in_proj produces [z (DI), x (DI), B (G*N), C (G*N), dt (H)]
         "in_proj": Spec((D, 2 * DI + 2 * G * N + H), ("embed", "d_inner")),
         "conv_w": Spec((cfg.conv_dim, conv_ch), (None, "d_inner")),
@@ -40,6 +49,9 @@ def mamba_specs(cfg: ModelConfig):
         "dt_bias": Spec((H,), (None,), "zeros", dtype="float32"),
         "out_proj": Spec((DI, D), ("d_inner", "embed")),
     }
+    if cfg.ssm_gated_norm:
+        s["norm"] = Spec((DI,), ("d_inner",), "ones")
+    return s
 
 
 def _split_proj(cfg: ModelConfig, zxbcdt):
@@ -125,18 +137,46 @@ def _segsum(dA):
     return diff.masked_fill(~mask, float("-inf"))
 
 
-def ssd_chunked(x, dt, A, B, C, D, chunk: int = 256,
+def tail_rows(s: int, chunk: int) -> int:
+    """The rows of a ragged last chunk in a sequence of ``s``: none where
+    the sequence fits one chunk or is a multiple of it."""
+    return s % chunk if s > chunk else 0
+
+
+def ssd_chunked(x, dt, A, B, C, D, chunk: int = CHUNK,
                 init_state: Optional[torch.Tensor] = None):
     """x (b,s,h,p); dt (b,s,h) >0; A (h,) <0; B,C (b,s,n); D (h,).
 
     Returns y (b,s,h,p) and the final state (b,h,p,n).
+
+    A sequence of up to ``chunk`` rows is one chunk. A longer one that is
+    not a multiple of ``chunk`` is padded to the next multiple with rows of
+    ``dt`` = 0 and zero x, B, C: a padded row neither decays the state
+    (``exp(0·A) = 1``) nor adds to it (``dt·B·xᵀ = 0``), and no real row
+    reads it (the intra-chunk term is causal), so the final state is the
+    state after the last real row; the padded rows' outputs are dropped.
+    A multiple of ``chunk`` runs as before, bit for bit. Counted in
+    ``mamba.ssd.tokens`` and ``mamba.ssd.pad_rows`` (always on), spanned
+    by ``mamba.ssd`` (``tokens``, ``pad_rows``).
     """
+    b, s = x.shape[:2]
+    pad = -s % min(chunk, s)
+    _metrics.counter("mamba.ssd.tokens").inc(b * s)
+    _metrics.counter("mamba.ssd.pad_rows").inc(b * pad)
+    with _span("mamba.ssd", tokens=b * s, pad_rows=b * pad):
+        if pad:
+            x, B, C = (F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+                       for t in (x, B, C))
+            dt = F.pad(dt, (0, 0, 0, pad))
+        y, state = _ssd(x, dt, A, B, C, D, min(chunk, s), init_state)
+        return (y[:, :s] if pad else y), state
+
+
+def _ssd(x, dt, A, B, C, D, chunk: int, init_state):
+    """:func:`ssd_chunked` of a sequence that is a multiple of ``chunk``."""
     acc = wide(x.dtype)
     b, s, h, p = x.shape
     n = B.shape[-1]
-    chunk = min(chunk, s)
-    if s % chunk:
-        raise ValueError(f"sequence {s} is not a multiple of chunk {chunk}")
     c = s // chunk
     xf = reshape(x.to(acc), b, c, chunk, h, p)
     dtf = reshape(dt.to(acc), b, c, chunk, h)
@@ -189,10 +229,24 @@ def ssd_step(x, dt, A, B, C, D, state):
     return y.to(x.dtype), new_state
 
 
-def apply_mamba(p, cfg: ModelConfig, x, *, chunk: int = 256):
+def _gate(p, cfg: ModelConfig, y, z):
+    """The SSD's output ``y`` gated by ``silu(z)``, in ``y``'s dtype; under
+    ``ssm_gated_norm``, Mamba-2's gated RMSNorm ``rmsnorm(y·silu(z))·w``
+    over ``d_inner`` (one group), computed in float32 with ε
+    ``norm_eps``."""
+    acc = wide(y.dtype)
+    if not cfg.ssm_gated_norm:
+        return y * F.silu(z.to(acc)).to(y.dtype)
+    g = y.to(acc) * F.silu(z.to(acc))
+    g = g * torch.rsqrt(g.square().mean(-1, keepdim=True) + cfg.norm_eps)
+    return (g * p["norm"].to(acc)).to(y.dtype)
+
+
+def apply_mamba(p, cfg: ModelConfig, x, *, chunk: Optional[int] = None):
     """Full-sequence mamba2 block. x (B,S,D) -> (B,S,D), and the final
     states ``{"ssm": (B,H,P,N), "conv": the last K-1 pre-conv inputs}``,
-    so a prefill can seed decoding."""
+    so a prefill can seed decoding (zeros before a prompt shorter than
+    K-1). ``chunk`` is the SSD's, :data:`CHUNK` by default."""
     acc = wide(x.dtype)
     B_, S, D = x.shape
     DI, H, Pd, N = cfg.di, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
@@ -205,10 +259,12 @@ def apply_mamba(p, cfg: ModelConfig, x, *, chunk: int = 256):
     dtv = F.softplus(dt.to(acc) + p["dt_bias"])               # (B,S,H)
     A = -torch.exp(p["A_log"])                                # (H,)
     y, state = ssd_chunked(reshape(xs, B_, S, H, Pd), dtv, A, Bc, Cc,
-                           p["D"], chunk=chunk)
-    y = reshape(y, B_, S, DI) * F.silu(z.to(acc)).to(x.dtype)
+                           p["D"], chunk=chunk or CHUNK)
+    y = _gate(p, cfg, reshape(y, B_, S, DI), z)
     out = _proj("bse,ed->bsd", y, p["out_proj"])
     K = cfg.conv_dim
+    if S < K - 1:
+        xbc_raw = F.pad(xbc_raw, (0, 0, K - 1 - S, 0))
     conv_tail = xbc_raw[:, -(K - 1):, :]
     return constrain(out, ("batch", None, None)), {"ssm": state,
                                                    "conv": conv_tail}
@@ -232,10 +288,10 @@ def apply_mamba_step(p, cfg: ModelConfig, x, conv_state, ssm_state):
     A = -torch.exp(p["A_log"])
     y, new_ssm = ssd_step(reshape(xs, B_, H, Pd), dtv, A, Bc, Cc, p["D"],
                           ssm_state)
-    y = reshape(y, B_, DI) * F.silu(z.to(acc)).to(x.dtype)
+    y = _gate(p, cfg, reshape(y, B_, DI), z)
     out = _proj("be,ed->bd", y, p["out_proj"])[:, None, :]
     return out, window[:, 1:, :], new_ssm
 
 
-__all__ = ["apply_mamba", "apply_mamba_step", "mamba_specs", "ssd_chunked",
-           "ssd_step"]
+__all__ = ["CHUNK", "apply_mamba", "apply_mamba_step", "mamba_specs",
+           "ssd_chunked", "ssd_step", "tail_rows"]

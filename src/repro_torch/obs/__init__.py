@@ -14,10 +14,17 @@ Both are stdlib-only. PlanService's path (``serve.*``, ``engine.execute``,
 model path's spans are ``engine.admit`` (``.handoff``, ``.first_token``),
 ``engine.step`` (``.fetch``, ``.sample``) in ``serve/engine.py`` and
 ``model.forward``, ``model.decode_step`` and one ``model.group`` per layer
-group in ``models/lm.py``; its counters are ``engine.tokens`` and
-``engine.host_copy_bytes``. ``tests/test_torch_serve_engine.py`` holds
-that span tree, the counters and the disabled tracer (no event recorded,
-the same tokens) on the CPU and runs both modules' examples;
+group in ``models/lm.py``, each Mamba-2 mixer's ``model.mamba``
+(``tokens``, ``tail``: the rows of a ragged last SSD chunk) inside its
+group and ``mamba.ssd`` (``tokens``, ``pad_rows``) around its chunked scan
+(``models/mamba.py``); its counters are ``engine.tokens``,
+``engine.host_copy_bytes``, ``mamba.ssd.tokens``, ``mamba.ssd.pad_rows``
+and ``mamba.decode.state_copy_bytes`` (the conv and SSM states a decode
+step copies back into the engine's cache).
+``tests/test_torch_serve_engine.py`` holds that span tree, the counters
+and the disabled tracer (no event recorded, the same tokens) on the CPU
+and runs both modules' examples; ``tests/test_torch_granite_hybrid.py``
+the Mamba-2 spans and counters;
 ``tests/test_torch_faults.py`` holds the crossbar engine's fault counters,
 gauges and spans.
 """

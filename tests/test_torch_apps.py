@@ -18,6 +18,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)   # leave the other test workers their cores
 
+from _config_parity import config_parity  # noqa: E402
 from repro.apps import bnn as ref_bnn  # noqa: E402
 from repro.apps import imaging as ref_imaging  # noqa: E402
 from repro.apps import pipeline as ref_pipeline  # noqa: E402
@@ -198,12 +199,17 @@ def test_default_service_runs_on_cuda():
 
 @pytest.mark.parametrize("name", sorted(REF_REGISTRY))
 def test_configs_match_reference(name):
+    """Every field of the reference's config, the port's equal, and each
+    field the port adds (``configs/base.py``) at its default, for the
+    config, its reduced form and its ``-smoke``."""
     got, want = get_config(name), ref_get_config(name)
-    assert dataclasses.asdict(got) == dataclasses.asdict(want)
-    assert dataclasses.asdict(got.reduced()) == \
-        dataclasses.asdict(want.reduced())
-    assert dataclasses.asdict(get_config(name + "-smoke")) == \
-        dataclasses.asdict(ref_get_config(name + "-smoke"))
+    mine, must = config_parity(got, want)
+    assert mine == must
+    mine, must = config_parity(got.reduced(), want.reduced())
+    assert mine == must
+    mine, must = config_parity(get_config(name + "-smoke"),
+                               ref_get_config(name + "-smoke"))
+    assert mine == must
     layers = range(got.n_layers)
     assert (got.vocab_padded, got.di,
             [(got.is_attn_layer(i), got.is_moe_layer(i)) for i in layers]) \

@@ -29,6 +29,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)   # leave the other test workers their cores
 
+from _config_parity import config_parity  # noqa: E402
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from repro.configs import get_config as ref_get_config  # noqa: E402
@@ -61,7 +62,8 @@ def _case(arch, dtype="float32"):
         ref_cfg = dataclasses.replace(ref_get_config(arch).reduced(),
                                       dtype=dtype)
         cfg = dataclasses.replace(get_config(arch).reduced(), dtype=dtype)
-        assert dataclasses.asdict(cfg) == dataclasses.asdict(ref_cfg)
+        mine, must = config_parity(cfg, ref_cfg)
+        assert mine == must
         ref_model = ref_build_model(ref_cfg)
         ref_params = ref_init_params(ref_model.specs(),
                                      jax.random.PRNGKey(0), dtype)
