@@ -164,7 +164,12 @@ each printing one JSON line per record:
              with ``attention.decode.plain`` at 0, granite-4.0-h-micro's
              4 × its decode steps, and mamba2-370m's 0 (record fields
              ``decode_attention_launches``,
-             ``attention_decode_calls``).
+             ``attention_decode_calls``). Each serving run replays every
+             decode step from the engine's CUDA graph
+             (``model.decode.graph``), and is served again with every step
+             eager (``DecodeGraph.takes`` patched to refuse): the same
+             tokens and launches; field ``graph``: the capture's seconds,
+             the median decode ms of both runs, the tokens equal.
 9. train   — the model stack's training half on ``cuda``. Record ``train``:
              olmo-1b at full width in bf16 through ``launch.train.train``
              (the CLI's path; weights from a seeded ``torch.Generator``),
@@ -1944,61 +1949,107 @@ def lm_check_f32(torch, arch: str) -> dict:
             **{f"{k}_max_abs_err": v for k, v in errs.items()}}
 
 
-def lm_serve(torch, arch: str) -> dict:
-    """Serve 8 requests (16 new tokens each, 4 slots, a 128-row cache)
-    through the port's launcher at full width in the config's bf16, with
-    weights from a seeded ``torch.Generator`` on the card."""
+def _lm_serve_counted(torch, arch: str) -> dict:
+    """One serving run of ``arch`` through the launcher, summed up with
+    what it counted (``decode_attention``'s launches, ``attention_decode``'s
+    kernel and plain calls, the decode steps replayed from the engine's
+    graph and run eagerly) and its memory; the engine is freed."""
     from repro_torch.kernels.decode_attention import \
         decode_attention as decode
     from repro_torch.launch.serve import serve
     from repro_torch.obs import metrics
-    paths = [metrics.counter(f"attention.decode.{n}")
-             for n in ("kernel", "plain")]
+    names = ("attention.decode.kernel", "attention.decode.plain",
+             "model.decode.graph", "model.decode.eager")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
     decode.launches = 0
-    calls0 = [c.value for c in paths]
+    counts0 = [metrics.counter(n).value for n in names]
     rep = serve(arch, requests=8, max_new=16, max_batch=4, max_seq=128,
                 device="cuda")
-    cfg, eng = rep["cfg"], rep["engine"]
-    peak = torch.cuda.max_memory_allocated()
-    results = rep["results"]
+    eng = rep.pop("engine")
+    rep.update(peak=torch.cuda.max_memory_allocated(), before=before,
+               launches=decode.launches, timings=eng.timings(),
+               capture_s=eng.graph.capture_s if eng.graph else None,
+               step_bytes=_decode_bytes(eng.model, eng.params, eng.B, eng.S),
+               max_batch=eng.B, max_seq=eng.S,
+               counts={n.split(".", 2)[-1]: metrics.counter(n).value - v
+                       for n, v in zip(names, counts0)})
+    del eng
+    torch.cuda.empty_cache()
+    return rep
+
+
+def lm_serve(torch, arch: str) -> dict:
+    """Serve 8 requests (16 new tokens each, 4 slots, a 128-row cache)
+    through the port's launcher at full width in the config's bf16, with
+    weights from a seeded ``torch.Generator`` on the card: decode steps
+    replayed from the engine's CUDA graph, then the same requests with
+    every step eager (``DecodeGraph.takes`` patched to refuse), whose
+    tokens must be the graph's."""
+    from unittest import mock
+
+    from repro_torch.models.lm import DecodeGraph
+    rep = _lm_serve_counted(torch, arch)
+    with mock.patch.object(DecodeGraph, "takes",
+                           staticmethod(lambda cache: False)):
+        eager = _lm_serve_counted(torch, arch)
+    cfg, results = rep["cfg"], rep["results"]
     check(sorted(results) == list(range(8))
           and all(len(v) == 16 and all(0 <= t < cfg.vocab for t in v)
                   for v in results.values()),
           f"{arch}: served {results}")
-    tm = eng.timings()
+    tm = rep["timings"]
     dec = sorted(tm["decode_ms"])
-    launches = decode.launches
-    calls = [c.value - v for c, v in zip(paths, calls0)]
+    eager_dec = sorted(eager["timings"]["decode_ms"])
+    launches, counts = rep["launches"], rep["counts"]
+    calls = [counts["kernel"], counts["plain"]]
     attn = sum(cfg.is_attn_layer(i) for i in range(cfg.n_layers))
     check(launches == attn * len(dec) and calls == [launches, 0],
           f"{arch}: decode_attention launched {launches} times in "
           f"{len(dec)} decode steps of {attn} attention layers; "
           f"attention_decode's kernel and plain calls {calls}")
+    check(rep["capture_s"] is not None and counts["graph"] == len(dec)
+          and counts["eager"] == 0,
+          f"{arch}: {counts['graph']} replayed and {counts['eager']} eager "
+          f"decode steps of {len(dec)}")
+    check(eager["capture_s"] is None and eager["counts"]["graph"] == 0
+          and eager["counts"]["eager"] == len(eager_dec) == len(dec)
+          and eager["launches"] == launches,
+          f"{arch}: the eager run counted {eager['counts']} and "
+          f"{eager['launches']} launches in {len(eager_dec)} steps")
+    equal = sum(a == b for u in results
+                for a, b in zip(results[u], eager["results"][u]))
     n_tok = sum(len(v) for v in results.values())
-    step_bytes = _decode_bytes(eng.model, eng.params, eng.B, eng.S)
-    out = {"arch": arch, "dtype": cfg.dtype, "n_layers": cfg.n_layers,
-           "d_model": cfg.d_model, "vocab": cfg.vocab,
-           "vocab_padded": cfg.vocab_padded, "params": rep["params"],
-           "param_bytes": rep["param_bytes"], "requests": 8,
-           "max_new": 16, "max_batch": eng.B, "max_seq": eng.S,
-           "tokens": n_tok, "wall_s": rep["wall_s"],
-           "tokens_per_s": n_tok / rep["wall_s"],
-           "prefill_ms": tm["prefill_ms"],
-           "decode_steps": len(dec), "decode_ms_median": dec[len(dec) // 2],
-           "decode_ms_min": dec[0], "decode_ms_max": dec[-1],
-           "decode_step_bytes": step_bytes,
-           "decode_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
-           "weights_bound_ms": rep["param_bytes"] / HBM_BYTES_PER_S * 1e3,
-           "decode_attention_launches": launches,
-           "attention_decode_calls": dict(zip(("kernel", "plain"), calls)),
-           "peak_memory_bytes": peak, "allocated_before_bytes": before,
-           "first_tokens": {u: results[u][:4] for u in range(2)}}
-    del rep, eng
-    torch.cuda.empty_cache()
-    return out
+    check(equal == n_tok, f"{arch}: {equal} of {n_tok} tokens equal between "
+          f"the graph's run and the eager run")
+    step_bytes = rep["step_bytes"]
+    return {"arch": arch, "dtype": cfg.dtype, "n_layers": cfg.n_layers,
+            "d_model": cfg.d_model, "vocab": cfg.vocab,
+            "vocab_padded": cfg.vocab_padded, "params": rep["params"],
+            "param_bytes": rep["param_bytes"], "requests": 8,
+            "max_new": 16, "max_batch": rep["max_batch"],
+            "max_seq": rep["max_seq"], "tokens": n_tok,
+            "wall_s": rep["wall_s"], "tokens_per_s": n_tok / rep["wall_s"],
+            "prefill_ms": tm["prefill_ms"],
+            "decode_steps": len(dec), "decode_ms_median": dec[len(dec) // 2],
+            "decode_ms_min": dec[0], "decode_ms_max": dec[-1],
+            "decode_step_bytes": step_bytes,
+            "decode_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
+            "weights_bound_ms": rep["param_bytes"] / HBM_BYTES_PER_S * 1e3,
+            "decode_attention_launches": launches,
+            "attention_decode_calls": dict(zip(("kernel", "plain"), calls)),
+            "graph": {"capture_s": rep["capture_s"],
+                      "decode_ms_median_graph": dec[len(dec) // 2],
+                      "decode_ms_median_eager":
+                          eager_dec[len(eager_dec) // 2],
+                      "tokens_equal": equal, "tokens": n_tok,
+                      "wall_s_eager": eager["wall_s"],
+                      "launches_per_step": launches / len(dec)},
+            "peak_memory_bytes": rep["peak"],
+            "peak_memory_bytes_eager": eager["peak"],
+            "allocated_before_bytes": rep["before"],
+            "first_tokens": {u: results[u][:4] for u in range(2)}}
 
 
 def phase_lm(torch, card: str) -> None:

@@ -14,7 +14,8 @@ A group is the smallest periodic pattern of sublayers (period =
 lcm(attn_every, moe_every)); parameters are stacked over groups, and the
 reference's ``lax.scan`` over groups becomes a loop over the stacked group
 axis. Caches come back stacked over groups, as the scan returns them;
-a decode step updates a plain cache in place (:meth:`Model.decode_step`).
+a decode step updates a plain cache in place (:meth:`Model.decode_step`),
+and on the card :class:`DecodeGraph` replays one from a CUDA graph.
 
 The model is functional, like the reference's: parameters (a tree from
 :func:`~repro_torch.models.spec.init_params` or
@@ -28,6 +29,7 @@ from __future__ import annotations
 
 import functools
 import math
+import time
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -39,7 +41,9 @@ from ..core.engine import resolve_device
 from ..distributed.sharding import (constrain, current_mesh, current_rules,
                                      use_mesh)
 from ..distributed.spmd import einsum, reshape
+from ..kernels import decode_attention as _decode
 from ..obs import metrics as _metrics
+from ..obs import trace as _trace
 from ..obs.trace import span as _span
 from . import layers as L
 from . import mamba as M
@@ -508,6 +512,103 @@ class Model(torch.nn.Module):
             return logits, cache
 
 
+# what a decode step's host code counts outside the metrics registry
+_LAUNCHES = "decode_attention.launches"
+
+
+def _tallies() -> Dict[str, float]:
+    """Every counter of :mod:`repro_torch.obs.metrics` by name, and
+    ``decode_attention``'s launches under :data:`_LAUNCHES`."""
+    reg = _metrics.registry()
+    out = {n: reg.get(n).value for n in reg.names()
+           if isinstance(reg.get(n), _metrics.Counter)}
+    out[_LAUNCHES] = _decode.decode_attention.launches
+    return out
+
+
+def _add_tally(name: str, n) -> None:
+    if name == _LAUNCHES:
+        _decode.decode_attention.launches += n
+    else:
+        _metrics.counter(name).inc(n)
+
+
+class DecodeGraph:
+    """:meth:`Model.decode_step` over a fixed cache on the card, captured
+    once in a CUDA graph and replayed for every step: the host issues one
+    graph launch where it issued each layer's operations.
+
+    It owns the static inputs, ``tokens`` (B, 1) and ``pos`` (B,) (the two
+    rows of one int64 buffer, ``feed``, filled by one copy a step), the
+    graph, and the static ``logits`` each replay writes. The step runs
+    once on a side stream first (every ``decode_attention`` variant built,
+    every launch plan and cached index made), then is captured on it; both
+    run on the zero cache, before any slot is live, and the cache is zeroed
+    again after them. The graph holds the cache's and the parameters'
+    addresses: the cache is written in place from then on (a prefill's
+    handoff by ``write_block``, a step by the graph).
+
+    Host code in the step runs at capture only, so each replay adds what
+    the capture counted (``attention.decode.kernel``,
+    ``mamba.decode.state_copy_bytes``, ``decode_attention.launches``, ...)
+    and records one ``model.decode_step`` span (``batch``, ``graph=1``);
+    the warm-up's and the capture's own counts are taken back, and no span
+    is recorded while they run. ``capture_s`` is their host seconds.
+
+    :meth:`takes` says which caches it is for: every leaf a plain tensor on
+    the card (:func:`layers.in_place`) of a dtype the decode kernel takes.
+    A DTensor cache (sequence split over ranks), the CPU and a float64
+    precision reference decode eagerly."""
+
+    @staticmethod
+    def takes(cache) -> bool:
+        return all(L.in_place(t) and t.is_cuda and t.dtype in _decode.DTYPES
+                   for t in tree_leaves(cache))
+
+    def __init__(self, model: Model, params, cache):
+        t0 = time.perf_counter()
+        leaf = tree_leaves(cache)[0]
+        dev = leaf.device
+        self.batch = leaf.shape[1]              # (groups, B, ...)
+        self.feed = torch.zeros((2, self.batch), dtype=torch.long,
+                                device=dev)
+        self.tokens, self.pos = self.feed[0][:, None], self.feed[1]
+        before = _tallies()
+        tracer = _trace.disable()
+        try:
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                model.decode_step(params, cache, self.tokens, self.pos)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            warm = _tallies()
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph, stream=side):
+                self.logits, _ = model.decode_step(params, cache,
+                                                   self.tokens, self.pos)
+            after = _tallies()
+        finally:
+            if tracer is not None:
+                _trace.enable(tracer)
+        self.counts = {n: v - warm.get(n, 0) for n, v in after.items()
+                       if v != warm.get(n, 0)}
+        for n, v in after.items():
+            _add_tally(n, before.get(n, 0) - v)
+        for t in tree_leaves(cache):
+            t.zero_()
+        torch.cuda.synchronize(dev)
+        self.capture_s = time.perf_counter() - t0
+
+    def replay(self) -> torch.Tensor:
+        """One decode step on what ``feed`` holds; returns the static
+        logits (B, 1, V), overwritten by the next replay."""
+        with _span("model.decode_step", batch=self.batch, graph=1):
+            self.graph.replay()
+        for n, v in self.counts.items():
+            _add_tally(n, v)
+        return self.logits
+
+
 def _sinusoid(S: int, D: int, dtype, device=None):
     pos = torch.arange(S, dtype=wide(dtype), device=device)[:, None]
     return _sinusoid_table(pos, D, dtype)
@@ -532,4 +633,4 @@ def build_model(cfg: ModelConfig, remat: str = "none") -> Model:
     return Model(cfg, remat)
 
 
-__all__ = ["Model", "N_PATCHES", "build_model"]
+__all__ = ["DecodeGraph", "Model", "N_PATCHES", "build_model"]

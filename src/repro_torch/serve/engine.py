@@ -4,8 +4,14 @@ the port of ``src/repro/serve/engine.py``.
 :class:`Engine` handles prefill → cache handoff (the prompt's K/V rows, or
 a Mamba layer's conv tail and SSM state, set into the request's slot),
 slot-based continuous batching, EOS retirement, and greedy or temperature
-sampling. The batching loop is host-side, as in real serving systems; the
-model runs eagerly on the parameters' device.
+sampling. The batching loop is host-side, as in real serving systems.
+Prefill runs eagerly on the parameters' device. A decode step over a
+plain cache on the card is replayed from one CUDA graph, captured when
+the engine is built over its ``max_batch`` slots and ``max_seq`` rows
+(:class:`~repro_torch.models.lm.DecodeGraph`): each step copies its
+tokens and write positions into the graph's static inputs and replays
+it. Elsewhere (the CPU, a DTensor cache on a mesh, a float64 cache) the
+step runs eagerly (:meth:`Model.decode_step`); both run the same body.
 
 On a process-group mesh (``use_mesh``) the engine serves DTensor
 parameters: the cache is placed by ``Model.cache_axes``, a prefill's
@@ -23,9 +29,11 @@ spanned: ``engine.admit`` (``uid``, ``prompt_len``, ``slot``) with its
 ``engine.step`` (``live`` slots; its self time is the token feed) with its
 ``engine.step.fetch`` (the logits to the host, ``bytes``) and
 ``engine.step.sample`` (sampling and retirement); the model's own spans
-nest inside. Two counters of :mod:`repro_torch.obs.metrics` are always
-on: ``engine.tokens``, every token sampled, and ``engine.host_copy_bytes``,
-the bytes of every logits tensor copied to the host.
+nest inside (a replayed step: one ``model.decode_step`` span with
+``graph=1``). Counters of :mod:`repro_torch.obs.metrics`, always on:
+``engine.tokens``, every token sampled; ``engine.host_copy_bytes``, the
+bytes of every logits tensor copied to the host; ``model.decode.graph``
+and ``model.decode.eager``, the decode steps replayed and run eagerly.
 """
 from __future__ import annotations
 
@@ -39,7 +47,7 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from ..distributed.sharding import distribute_tree, write_block
-from ..models.lm import Model
+from ..models.lm import DecodeGraph, Model
 from ..models.spec import torch_dtype, tree_leaves
 from ..obs import metrics as _metrics
 from ..obs.trace import span as _span
@@ -118,6 +126,8 @@ class Engine:
         self.cache = distribute_tree(
             model.init_cache(self.B, self.S, torch_dtype(self.cfg.dtype),
                              device=self.device), model.cache_axes())
+        self.graph = (DecodeGraph(model, params, self.cache)
+                      if DecodeGraph.takes(self.cache) else None)
         self.pos = np.zeros(self.B, np.int64)         # next write index / slot
         self.slots: List[Optional[Request]] = [None] * self.B
         self._prefill_t: List[Tuple[int, _Timer]] = []
@@ -195,14 +205,22 @@ class Engine:
             return self._step(live)
 
     def _step(self, live: List[int]) -> List[Tuple[int, int]]:
-        tokens = np.zeros((self.B, 1), np.int64)
+        feed = np.zeros((2, self.B), np.int64)   # each slot's token, pos
         for i in live:
-            tokens[i, 0] = self.slots[i].out[-1]
-        timer = _Timer(self.device)
-        logits, self.cache = self.model.decode_step(
-            self.params, self.cache,
-            torch.from_numpy(tokens).to(self.device),
-            torch.from_numpy(self.pos.copy()).to(self.device))
+            feed[0, i] = self.slots[i].out[-1]
+        feed[1] = self.pos
+        feed = torch.from_numpy(feed)
+        if self.graph is not None:
+            self.graph.feed.copy_(feed)
+            _metrics.counter("model.decode.graph").inc()
+            timer = _Timer(self.device)
+            logits = self.graph.replay()
+        else:
+            feed = feed.to(self.device)
+            _metrics.counter("model.decode.eager").inc()
+            timer = _Timer(self.device)
+            logits, self.cache = self.model.decode_step(
+                self.params, self.cache, feed[0][:, None], feed[1])
         timer.stop()
         self._decode_t.append(timer)
         out = []
@@ -238,8 +256,9 @@ class Engine:
 
     def timings(self) -> Dict[str, object]:
         """Device milliseconds of every prefill (``{uid: ms}``: model
-        forward and cache handoff) and every decode step (a list), in
-        order. On a card: CUDA events."""
+        forward and cache handoff) and every decode step (a list: the
+        graph's replay, or the eager step), in order. On a card: CUDA
+        events."""
         return {"prefill_ms": {uid: t.ms() for uid, t in self._prefill_t},
                 "decode_ms": [t.ms() for t in self._decode_t]}
 

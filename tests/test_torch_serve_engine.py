@@ -7,9 +7,17 @@ port's own full-forward oracle. The same for the mamba reduced config,
 which hands a prefill's conv tail and SSM state into its slot. The
 engine's and the model's spans and counters (``repro_torch.obs``) on a
 tiny port model: their tree, their counts, and the same tokens with
-tracing on and off.
+tracing on and off. On the CPU, and under ``use_mesh`` with a DTensor
+cache (a one-rank gloo group in a subprocess), the engine captures no
+CUDA graph: every decode step is eager, and the tokens are the same.
 """
 import dataclasses
+import json
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -227,6 +235,101 @@ def test_counters_and_tokens_with_tracing_on_and_off(traced):
         "model.decode_step") == steps
     assert names.count("model.group") == model.n_groups * (
         steps + len(prompts))
+
+
+def _decode_steps() -> dict:
+    """The decode steps counted so far, by path."""
+    snap = metrics.snapshot()
+    return {k: snap.get(f"model.decode.{k}", {"value": 0})["value"]
+            for k in ("graph", "eager")}
+
+
+def _eager_prompts():
+    rng = np.random.default_rng(4)
+    return [rng.integers(0, 512, (5 + 3 * i,)) for i in range(3)]
+
+
+def test_cpu_engine_decodes_every_step_eagerly():
+    """On the CPU the engine builds no graph: one ``model.decode.eager``
+    a decode step, no ``model.decode.graph``, the oracle's tokens."""
+    cfg, model, params = _tiny()
+    eng = Engine(model, params, max_batch=2, max_seq=40)
+    assert eng.graph is None
+    prompts = _eager_prompts()
+    metrics.reset_metrics()
+    got = eng.run([Request(uid=i, prompt=p, max_new=4)
+                   for i, p in enumerate(prompts)])
+    steps = len(eng.timings()["decode_ms"])
+    assert steps > 0 and _decode_steps() == {"graph": 0, "eager": steps}
+    for uid, p in enumerate(prompts):
+        assert got[uid] == oracle_continuation(model, params, cfg, p, 4)
+
+
+# ``_tiny``'s engine over a DTensor cache: a one-rank gloo group, the
+# (data=1, model=1) mesh, parameters and cache placed on it
+_MESH_SERVE = textwrap.dedent("""
+    import dataclasses, json, sys
+    import numpy as np, torch, torch.distributed as dist
+    torch.set_num_threads(1)
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import distribute_tree, use_mesh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.spec import axes_tree, init_params, tree_leaves
+    from repro_torch.obs import metrics
+    from repro_torch.serve import Engine, Request
+    store, prompts = sys.argv[1], json.loads(sys.argv[2])
+    dist.init_process_group("gloo", init_method="file://" + store, rank=0,
+                            world_size=1)
+    try:
+        cfg = dataclasses.replace(get_config("olmo-1b").reduced(),
+                                  dtype="float32")
+        model = build_model(cfg)
+        mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+        with use_mesh(mesh):
+            specs = model.specs()
+            params = distribute_tree(
+                init_params(specs, torch.Generator().manual_seed(0),
+                            "float32"), axes_tree(specs), mesh, params=True)
+            eng = Engine(model, params, max_batch=2, max_seq=40)
+            metrics.reset_metrics()
+            got = eng.run([Request(uid=i, prompt=np.asarray(p), max_new=4)
+                           for i, p in enumerate(prompts)])
+        snap = metrics.snapshot()
+        print(json.dumps({
+            "dtensor": all(isinstance(t, DTensor)
+                           for t in tree_leaves(eng.cache)),
+            "graph": eng.graph is not None,
+            "steps": len(eng.timings()["decode_ms"]),
+            "counts": {k: snap.get("model.decode." + k, {"value": 0})["value"]
+                       for k in ("graph", "eager")},
+            "tokens": {str(u): v for u, v in got.items()}}))
+    finally:
+        dist.destroy_process_group()
+""")
+
+
+def test_mesh_engine_decodes_every_step_eagerly(tmp_path):
+    """Under ``use_mesh`` the cache is DTensors: the engine builds no
+    graph, counts one ``model.decode.eager`` a step and none under
+    ``model.decode.graph``, and serves the plain CPU engine's tokens."""
+    cfg, model, params = _tiny()
+    prompts = _eager_prompts()
+    plain = Engine(model, params, max_batch=2, max_seq=40).run(
+        [Request(uid=i, prompt=p, max_new=4) for i, p in enumerate(prompts)])
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [src, os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run(
+        [sys.executable, "-c", _MESH_SERVE, str(tmp_path / "store"),
+         json.dumps([p.tolist() for p in prompts])],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    rep = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert rep["dtensor"] and not rep["graph"] and rep["steps"] > 0
+    assert rep["counts"] == {"graph": 0, "eager": rep["steps"]}
+    assert {int(u): v for u, v in rep["tokens"].items()} == plain
 
 
 @pytest.mark.parametrize("module", ["repro_torch.obs.trace",
