@@ -14,8 +14,8 @@ attention softmax over a split axis (a decode cache split on
 'cache_seq') reduces each rank's partial maximum and sum and never
 gathers the logits (:func:`repro_torch.distributed.spmd.softmax`); the
 MoE router's softmax gathers its experts axis, which ``topk`` needs
-whole. A decode step on a plain cache writes its new row in place and
-reads the cache through the hand-written ``decode_attention`` kernel
+whole. A decode step writes its new row into the cache in place, and
+reads a plain cache through the hand-written ``decode_attention`` kernel
 (:func:`attention_decode`).
 """
 from __future__ import annotations
@@ -205,15 +205,6 @@ def cross_attention(p, cfg: ModelConfig, x, enc_kv):
     return einsum("bshk,hkd->bsd", o, p["wo"])
 
 
-def in_place(cache) -> bool:
-    """Whether a decode step updates ``cache`` (a leaf) where it lies: a
-    plain tensor, which :func:`attention_decode` writes in place and gives
-    back as the very tensor it took. A DTensor cache, its sequence split
-    over ranks, is built anew (:func:`_write_rows`' ``local_map``,
-    ``lm._stack``)."""
-    return not isinstance(cache, DTensor)
-
-
 @functools.lru_cache(maxsize=None)
 def _slots(n: int, device: torch.device):
     """``arange(n)`` on ``device``, the batch index of a row write (built
@@ -221,22 +212,23 @@ def _slots(n: int, device: torch.device):
     return torch.arange(n, device=device)
 
 
-def _write_rows(cache, pos, row):
-    """``cache`` (B, S_max, KV, hd) with ``row[b]`` set at sequence index
-    ``pos[b]`` of every batch slot ``b``. A plain cache is written in place
-    and returned: the port updates the cache where the reference's jitted
-    step takes it donated and returns a new one.
+def _write_rows(cache, pos, row) -> None:
+    """Set ``row[b]`` at sequence index ``pos[b]`` of every batch slot ``b``
+    of ``cache`` (B, S_max, KV, hd), in place: the port updates the cache
+    where the reference's jitted step takes it donated and returns a new
+    one.
 
     On a DTensor cache whose sequence axis is split ('cache_seq' over
-    'model'), DTensor's ``index_put`` would all-gather the whole cache to
+    'model'), DTensor's ``index_put_`` would all-gather the whole cache to
     write one row. Here each rank writes the rows that fall in its own
-    block of the sequence and keeps the others (a ``local_map``): the
-    cache stays where it is, and only the new row (and ``pos``) is
-    brought to the cache's placement over the batch and the KV heads."""
-    if in_place(cache):
-        return cache.index_put_((_slots(cache.shape[0], pos.device), pos),
-                                row)
-    from torch.distributed.tensor.experimental import local_map
+    block of the sequence into its local shard and keeps the others (as
+    :func:`~repro_torch.distributed.sharding.write_block` does for a
+    prefill): the cache is never gathered, and only the new row (and
+    ``pos``) is brought to the cache's placement over the batch and the KV
+    heads."""
+    if not isinstance(cache, DTensor):
+        cache.index_put_((_slots(cache.shape[0], pos.device), pos), row)
+        return
     seq = [isinstance(q, Shard) and q.dim == 1 for q in cache.placements]
     # the row lacks the sequence axis: dims past it move down by one
     row_pl = tuple(Replicate() if s or not isinstance(q, Shard)
@@ -245,35 +237,26 @@ def _write_rows(cache, pos, row):
     pos_pl = tuple(q if isinstance(q, Shard) and q.dim == 0 else Replicate()
                    for q in cache.placements)
     mesh = cache.device_mesh
-
-    def placed(t, pl):
-        return redistribute(as_dtensor(t, mesh), pl)
-    s0 = shard_offset(cache, 1)
-
-    def local(c, ps, r):
-        n = c.shape[1]
-        at = ps - s0
-        inside = (at >= 0) & (at < n)
-        b = torch.arange(c.shape[0], device=c.device)
-        at = at.clamp(0, n - 1)
-        keep = c[b, at]
-        return c.index_put((b, at), torch.where(inside[:, None, None], r,
-                                                keep))
-    return local_map(local, out_placements=list(cache.placements),
-                     in_placements=(cache.placements, pos_pl, row_pl),
-                     device_mesh=mesh)(cache, placed(pos, pos_pl),
-                                       placed(row, row_pl))
+    c = cache.to_local()
+    r = redistribute(as_dtensor(row, mesh), row_pl).to_local()
+    at = redistribute(as_dtensor(pos, mesh), pos_pl).to_local() \
+        - shard_offset(cache, 1)
+    n = c.shape[1]
+    inside = (at >= 0) & (at < n)
+    b = _slots(c.shape[0], c.device)
+    at = at.clamp(0, n - 1)
+    c.index_put_((b, at), torch.where(inside[:, None, None], r, c[b, at]))
 
 
 def attention_decode(p, cfg: ModelConfig, x, cache_k, cache_v, pos):
-    """One-token decode against a (B, S_max, KV, hd) cache.
+    """One-token decode against a (B, S_max, KV, hd) cache; returns y.
 
     ``pos`` (B,) is the write index. The new k/v row is *set* at ``pos``
-    (not added), so a recycled batch slot with stale rows stays correct;
-    rows past ``pos`` are masked out of the softmax.
+    (not added), in place (:func:`_write_rows`), so a recycled batch slot
+    with stale rows stays correct; rows past ``pos`` are masked out of the
+    softmax.
 
-    A plain float32 or bfloat16 cache is written in place
-    (:func:`_write_rows`) and read by
+    A plain float32 or bfloat16 cache is read by
     :func:`~repro_torch.kernels.decode_attention.decode_attention`, which
     reads each slot's rows up to ``pos`` once and no others. A DTensor
     cache (its sequence split over ranks) and one of another dtype (the
@@ -292,11 +275,11 @@ def attention_decode(p, cfg: ModelConfig, x, cache_k, cache_v, pos):
             rp = pos[:, None]
         q = apply_rope(q, rp, cfg.rope_theta, sections)
         k = apply_rope(k, rp, cfg.rope_theta, sections)
-    cache_k = _write_rows(cache_k, pos, k[:, 0].to(cache_k.dtype))
-    cache_v = _write_rows(cache_v, pos, v[:, 0].to(cache_v.dtype))
+    _write_rows(cache_k, pos, k[:, 0].to(cache_k.dtype))
+    _write_rows(cache_v, pos, v[:, 0].to(cache_v.dtype))
     cache_k = constrain(cache_k, ("batch", "cache_seq", "kv_heads", None))
     cache_v = constrain(cache_v, ("batch", "cache_seq", "kv_heads", None))
-    if in_place(cache_k) and cache_k.dtype in _decode.DTYPES:
+    if not isinstance(cache_k, DTensor) and cache_k.dtype in _decode.DTYPES:
         _metrics.counter("attention.decode.kernel").inc()
         o = _decode.decode_attention(q, cache_k, cache_v, pos,
                                      logit_divisor(cfg, q.shape[-1]))
@@ -306,7 +289,7 @@ def attention_decode(p, cfg: ModelConfig, x, cache_k, cache_v, pos):
                  <= pos[:, None])[:, None, :]                  # (B,1,Smax)
         o = _sdpa(q, cache_k, cache_v, valid, cfg)
     y = einsum("bshk,hkd->bsd", o, p["wo"])
-    return constrain(y, ("batch", None, None)), cache_k, cache_v
+    return constrain(y, ("batch", None, None))
 
 
 # ---------------------------------------------------------------------------
@@ -510,5 +493,5 @@ def unembed(p, cfg: ModelConfig, x):
 
 __all__ = ["MOE_GROUP", "apply_mlp", "apply_moe", "apply_norm",
            "apply_rope", "attention", "attention_decode", "attn_specs",
-           "cross_attention", "embed", "embed_specs", "in_place",
-           "mlp_specs", "moe_specs", "norm_specs", "unembed"]
+           "cross_attention", "embed", "embed_specs", "mlp_specs",
+           "moe_specs", "norm_specs", "unembed"]

@@ -14,8 +14,10 @@ A group is the smallest periodic pattern of sublayers (period =
 lcm(attn_every, moe_every)); parameters are stacked over groups, and the
 reference's ``lax.scan`` over groups becomes a loop over the stacked group
 axis. Caches come back stacked over groups, as the scan returns them;
-a decode step updates a plain cache in place (:meth:`Model.decode_step`),
-and on the card :class:`DecodeGraph` replays one from a CUDA graph.
+a decode step updates the cache in place, each sublayer its own slice
+(:meth:`Model.decode_step`), and on the card :class:`DecodeGraph` replays
+one from a CUDA graph. :class:`Model` alone knows the cache's format
+(:meth:`Model._cache_specs`, :meth:`Model.write_slot`).
 
 The model is functional, like the reference's: parameters (a tree from
 :func:`~repro_torch.models.spec.init_params` or
@@ -33,13 +35,15 @@ import time
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..configs.base import ModelConfig
 from ..core.engine import resolve_device
-from ..distributed.sharding import (constrain, current_mesh, current_rules,
-                                     use_mesh)
+from ..distributed.sharding import (as_dtensor, constrain, current_mesh,
+                                     current_rules, redistribute, use_mesh,
+                                     write_block)
 from ..distributed.spmd import einsum, reshape
 from ..kernels import decode_attention as _decode
 from ..obs import metrics as _metrics
@@ -47,7 +51,8 @@ from ..obs import trace as _trace
 from ..obs.trace import span as _span
 from . import layers as L
 from . import mamba as M
-from .spec import Spec, stack_specs, torch_dtype, tree_leaves, tree_map, wide
+from .spec import (Spec, axes_tree, is_spec, stack_specs, torch_dtype,
+                   tree_leaves, tree_map, wide)
 
 N_PATCHES = 256  # vlm stub: image patches prepended to the text sequence
 
@@ -94,27 +99,16 @@ def _unstack(tree, n: int) -> list:
     return [type(tree)(p[g] for p in parts) for g in range(n)]
 
 
-def _in_place(cache) -> bool:
-    """Whether a decode step updates the stacked ``cache`` where it lies
-    (:func:`layers.in_place` of its leaves)."""
-    return L.in_place(tree_leaves(cache)[0])
-
-
-def _write_back(views, new) -> int:
-    """Set each leaf of ``views`` (one group's views into the stacked
-    cache) to the matching leaf of ``new``: nothing where the layer gave
-    the view back itself (attention's K and V, written in place, as
-    :func:`layers.in_place` says), a ``copy_`` otherwise (a Mamba layer's
-    conv and SSM states). Identity, not a data pointer, decides: on
-    ``meta`` every data pointer is 0. Returns the bytes copied."""
-    if isinstance(views, torch.Tensor):
-        if new is views:
-            return 0
-        views.copy_(new)
-        return new.nbytes
-    if isinstance(views, dict):
-        return sum(_write_back(views[k], new[k]) for k in views)
-    return sum(_write_back(a, b) for a, b in zip(views, new))
+def _set_state(dst, new) -> int:
+    """Copy a Mamba layer's ``new`` state into ``dst``, its slice of the
+    cache: on a DTensor slice, into its local shard, ``new`` brought to the
+    slice's placements first. Returns the bytes copied."""
+    if isinstance(dst, DTensor):
+        new = redistribute(as_dtensor(new, dst.device_mesh),
+                           dst.placements).to_local()
+        dst = dst.to_local()
+    dst.copy_(new)
+    return new.nbytes
 
 
 def _residual(cfg: ModelConfig, x, y):
@@ -247,12 +241,12 @@ class Model(torch.nn.Module):
                         cache=None, cross_kv=None):
         cfg = self.cfg
         mixer, ffn = kind
+        new_cache = None
         h = L.apply_norm(p["norm1"], cfg, x)
         if mixer == "attn":
             if decode:
-                y, ck, cv = L.attention_decode(p["attn"], cfg, h,
-                                               cache["k"], cache["v"], pos)
-                new_cache = {"k": ck, "v": cv}
+                y = L.attention_decode(p["attn"], cfg, h, cache["k"],
+                                       cache["v"], pos)
             else:
                 y, (k, v) = L.attention(p["attn"], cfg, h, pos, causal=True,
                                         positions3=positions3)
@@ -264,7 +258,9 @@ class Model(torch.nn.Module):
                 if decode:
                     y, conv, ssm = M.apply_mamba_step(
                         p["mamba"], cfg, h, cache["conv"], cache["ssm"])
-                    new_cache = {"conv": conv, "ssm": ssm}
+                    _metrics.counter("mamba.decode.state_copy_bytes").inc(
+                        _set_state(cache["conv"], conv)
+                        + _set_state(cache["ssm"], ssm))
                 else:
                     y, new_cache = M.apply_mamba(p["mamba"], cfg, h)
         x = _residual(cfg, x, y)
@@ -308,11 +304,11 @@ class Model(torch.nn.Module):
     def _groups(self, params, x, pos, positions3, cache=None,
                 cross_kv=None):
         """The reference's scan over layer groups, as a loop: returns the
-        hidden state and the per-group caches stacked over groups (no
-        cache when the groups run checkpointed, :meth:`_checkpoints`). A
-        decode step on a plain cache writes each group's new cache into
-        its slice of ``cache`` and returns ``cache`` itself
-        (:func:`_in_place`)."""
+        hidden state and, for a forward, the per-group caches stacked over
+        groups (none when the groups run checkpointed,
+        :meth:`_checkpoints`). A decode step (``cache`` given) has each
+        sublayer write its new cache into its slice of ``cache``, and
+        returns no cache."""
         decode = cache is not None
         n = self.n_groups
         layers = _unstack(params["layers"], n)
@@ -329,11 +325,10 @@ class Model(torch.nn.Module):
                 if use_cross:
                     p["cross_norm"] = cross[g]["norm"]
                     p["cross_attn"] = cross[g]["attn"]
-                x, c = self._apply_sublayer(
+                x, new_caches[f"sub{i}"] = self._apply_sublayer(
                     p, kind, x, pos, positions3, decode=decode,
                     cache=caches[g][f"sub{i}"] if decode else None,
                     cross_kv=ckvs[g] if use_cross else None)
-                new_caches[f"sub{i}"] = c
             return x, new_caches
 
         if not decode and self._checkpoints():
@@ -345,13 +340,7 @@ class Model(torch.nn.Module):
             with _span("model.group", g=g):
                 x, c = body(g, x)
             per_group.append(c)
-        if decode and _in_place(cache):
-            copied = sum(_write_back(views, c)
-                         for views, c in zip(caches, per_group))
-            if copied:
-                _metrics.counter("mamba.decode.state_copy_bytes").inc(copied)
-            return x, cache
-        return x, _stack(per_group)
+        return x, None if decode else _stack(per_group)
 
     # -- encoder (whisper) ----------------------------------------------------
 
@@ -431,71 +420,73 @@ class Model(torch.nn.Module):
 
     # -- decode ---------------------------------------------------------------
 
+    def _cache_specs(self, B: int, S_max: int, dtype,
+                     enc_seq: Optional[int] = None):
+        """The cache's format, which :meth:`init_cache` and
+        :meth:`cache_axes` read: a tree of :class:`~.spec.Spec` stacked
+        over groups, each leaf's shape, logical axes and dtype. A
+        sublayer's cache by its mixer: attention's K and V rows, a Mamba
+        layer's conv tail and SSM state (the state in ``wide(dtype)``);
+        whisper's cross K/V beside the layers."""
+        cfg = self.cfg
+
+        def sublayer(mixer):
+            if mixer == "attn":
+                kv = Spec((B, S_max, cfg.n_kv_heads, cfg.hd),
+                          ("batch", "cache_seq", "kv_heads", None),
+                          dtype=dtype)
+                return {"k": kv, "v": kv}
+            ch = cfg.di + 2 * cfg.ssm_state
+            return {"conv": Spec((B, cfg.conv_dim - 1, ch),
+                                 ("batch", None, "d_inner"), dtype=dtype),
+                    "ssm": Spec((B, cfg.ssm_heads, cfg.ssm_headdim,
+                                 cfg.ssm_state), ("batch", None, None, None),
+                                dtype=wide(dtype))}
+        group = {f"sub{i}": sublayer(mixer)
+                 for i, (mixer, _) in enumerate(self.kinds)}
+        specs = {"layers": stack_specs(group, self.n_groups)}
+        if cfg.family == "encdec":
+            cross = Spec((B, enc_seq or cfg.enc_seq, cfg.n_kv_heads, cfg.hd),
+                         ("batch", None, "kv_heads", None), dtype=dtype)
+            specs["cross_kv"] = stack_specs((cross, cross), self.n_groups)
+        return specs
+
     def init_cache(self, B: int, S_max: int, dtype=torch.bfloat16,
                    enc_seq: Optional[int] = None, device="cuda"):
         """Zero caches, stacked over groups, on ``device`` (the card unless
         another device is asked for; raises without CUDA)."""
-        cfg = self.cfg
         device = resolve_device(device)
-        dtype = torch_dtype(dtype)
-
-        def zeros(*shape, dt=dtype):
-            return torch.zeros(shape, dtype=dt, device=device)
-
-        per_group: Dict[str, Any] = {}
-        for i, (mixer, _) in enumerate(self.kinds):
-            if mixer == "attn":
-                per_group[f"sub{i}"] = {
-                    "k": zeros(self.n_groups, B, S_max, cfg.n_kv_heads,
-                               cfg.hd),
-                    "v": zeros(self.n_groups, B, S_max, cfg.n_kv_heads,
-                               cfg.hd),
-                }
-            else:
-                ch = cfg.di + 2 * cfg.ssm_state
-                per_group[f"sub{i}"] = {
-                    "conv": zeros(self.n_groups, B, cfg.conv_dim - 1, ch),
-                    "ssm": zeros(self.n_groups, B, cfg.ssm_heads,
-                                 cfg.ssm_headdim, cfg.ssm_state,
-                                 dt=wide(dtype)),
-                }
-        cache: Dict[str, Any] = {"layers": per_group}
-        if cfg.family == "encdec":
-            es = enc_seq or cfg.enc_seq
-            cache["cross_kv"] = (
-                zeros(self.n_groups, B, es, cfg.n_kv_heads, cfg.hd),
-                zeros(self.n_groups, B, es, cfg.n_kv_heads, cfg.hd),
-            )
-        return cache
+        return tree_map(
+            lambda s: torch.zeros(s.shape, dtype=s.dtype, device=device),
+            self._cache_specs(B, S_max, torch_dtype(dtype), enc_seq),
+            is_spec)
 
     def cache_axes(self):
         """Logical sharding axes matching init_cache."""
-        cfg = self.cfg
-        per_group = {}
-        for i, (mixer, _) in enumerate(self.kinds):
-            if mixer == "attn":
-                ax = ("layers", "batch", "cache_seq", "kv_heads", None)
-                per_group[f"sub{i}"] = {"k": ax, "v": ax}
-            else:
-                per_group[f"sub{i}"] = {
-                    "conv": ("layers", "batch", None, "d_inner"),
-                    "ssm": ("layers", "batch", None, None, None),
-                }
-        cache = {"layers": per_group}
-        if cfg.family == "encdec":
-            ax = ("layers", "batch", None, "kv_heads", None)
-            cache["cross_kv"] = (ax, ax)
-        return cache
+        return axes_tree(self._cache_specs(1, 1, torch.float32))
+
+    def write_slot(self, cache, prefill, slot: int) -> None:
+        """Set one request's prefill cache (:meth:`forward`'s, batch 1)
+        into batch slot ``slot`` of ``cache``, each leaf's block from the
+        slot's origin: attention's rows up to the prompt's length, a Mamba
+        layer's states whole. A set, so a recycled slot keeps no stale row
+        that the decode mask would let through; on a DTensor cache each
+        rank writes its own part (:func:`write_block`)."""
+        for dst, src in zip(tree_leaves(cache["layers"]),
+                            tree_leaves(prefill)):
+            write_block(dst, (slice(None), slot)
+                        + tuple(slice(0, n) for n in src.shape[2:]),
+                        src[:, 0])
 
     def decode_step(self, params, cache, tokens, pos):
-        """tokens (B,1); pos (B,) write index. Returns (logits, new cache).
+        """tokens (B,1); pos (B,) write index. Returns (logits, cache).
 
         Where the reference's jitted step takes the cache donated and
-        returns a new one, the port updates a plain cache in place and
-        returns the same cache object: the new K/V row is written into
-        each layer's slice, a Mamba layer's states copied into theirs,
-        and nothing of the cache is copied whole. A DTensor cache is
-        returned restacked in a new dict."""
+        returns a new one, the port updates the cache in place and returns
+        the cache object it was given, plain or DTensor: each attention
+        sublayer sets its new K/V row into its slice, each Mamba sublayer
+        copies its new states into theirs, and nothing of the cache is
+        copied whole."""
         with _span("model.decode_step", batch=tokens.shape[0]):
             cfg = self.cfg
             pos = pos.long()
@@ -503,13 +494,10 @@ class Model(torch.nn.Module):
             if cfg.family == "encdec":
                 x = x + _sinusoid_at(pos, cfg.d_model, x.dtype)[:, None, :]
             positions3 = None  # vlm decode: text-only continuation (stub)
-            x, new_layer_cache = self._groups(
-                params, x, pos, positions3, cache=cache["layers"],
-                cross_kv=cache.get("cross_kv"))
-            logits = self._logits(params, x)
-            if new_layer_cache is not cache["layers"]:
-                cache = dict(cache, layers=new_layer_cache)
-            return logits, cache
+            x, _ = self._groups(params, x, pos, positions3,
+                                cache=cache["layers"],
+                                cross_kv=cache.get("cross_kv"))
+            return self._logits(params, x), cache
 
 
 # what a decode step's host code counts outside the metrics registry
@@ -546,7 +534,7 @@ class DecodeGraph:
     run on the zero cache, before any slot is live, and the cache is zeroed
     again after them. The graph holds the cache's and the parameters'
     addresses: the cache is written in place from then on (a prefill's
-    handoff by ``write_block``, a step by the graph).
+    handoff by :meth:`Model.write_slot`, a step by the graph).
 
     Host code in the step runs at capture only, so each replay adds what
     the capture counted (``attention.decode.kernel``,
@@ -555,15 +543,15 @@ class DecodeGraph:
     the warm-up's and the capture's own counts are taken back, and no span
     is recorded while they run. ``capture_s`` is their host seconds.
 
-    :meth:`takes` says which caches it is for: every leaf a plain tensor on
-    the card (:func:`layers.in_place`) of a dtype the decode kernel takes.
+    :meth:`takes` says which caches it is for: every leaf a plain tensor
+    (not a DTensor) on the card, of a dtype the decode kernel takes.
     A DTensor cache (sequence split over ranks), the CPU and a float64
     precision reference decode eagerly."""
 
     @staticmethod
     def takes(cache) -> bool:
-        return all(L.in_place(t) and t.is_cuda and t.dtype in _decode.DTYPES
-                   for t in tree_leaves(cache))
+        return all(not isinstance(t, DTensor) and t.is_cuda
+                   and t.dtype in _decode.DTYPES for t in tree_leaves(cache))
 
     def __init__(self, model: Model, params, cache):
         t0 = time.perf_counter()

@@ -1,17 +1,18 @@
 """Serving engine: continuous-batching prefill + decode with a KV cache,
 the port of ``src/repro/serve/engine.py``.
 
-:class:`Engine` handles prefill → cache handoff (the prompt's K/V rows, or
-a Mamba layer's conv tail and SSM state, set into the request's slot),
-slot-based continuous batching, EOS retirement, and greedy or temperature
-sampling. The batching loop is host-side, as in real serving systems.
-Prefill runs eagerly on the parameters' device. A decode step over a
-plain cache on the card is replayed from one CUDA graph, captured when
-the engine is built over its ``max_batch`` slots and ``max_seq`` rows
-(:class:`~repro_torch.models.lm.DecodeGraph`): each step copies its
-tokens and write positions into the graph's static inputs and replays
-it. Elsewhere (the CPU, a DTensor cache on a mesh, a float64 cache) the
-step runs eagerly (:meth:`Model.decode_step`); both run the same body.
+:class:`Engine` handles prefill → cache handoff (the prompt's cache set
+into the request's slot by :meth:`Model.write_slot`, which alone knows the
+cache's format), slot-based continuous batching, EOS retirement, and
+greedy or temperature sampling. The batching loop is host-side, as in
+real serving systems. Prefill runs eagerly on the parameters' device. A
+decode step over a plain cache on the card is replayed from one CUDA
+graph, captured when the engine is built over its ``max_batch`` slots and
+``max_seq`` rows (:class:`~repro_torch.models.lm.DecodeGraph`): each step
+copies its tokens and write positions into the graph's static inputs and
+replays it. Elsewhere (the CPU, a DTensor cache on a mesh, a float64
+cache) the step runs eagerly (:meth:`Model.decode_step`); both run the
+same body, which writes the cache where it lies.
 
 On a process-group mesh (``use_mesh``) the engine serves DTensor
 parameters: the cache is placed by ``Model.cache_axes``, a prefill's
@@ -19,8 +20,9 @@ rows are written into each rank's own block of it, and the logits are
 gathered whole to the host, where sampling reads them.
 
 Every prefill and decode step is timed on the device: CUDA events on a
-card (read after the step's logits reach the host, which waits for them
-anyway), the host clock on the CPU. :meth:`Engine.timings` returns them.
+card (read into a number once the step's logits reach the host, which
+waits for them anyway), the host clock on the CPU. :meth:`Engine.timings`
+returns them.
 
 With :mod:`repro_torch.obs.trace` enabled, the engine's host work is
 spanned: ``engine.admit`` (``uid``, ``prompt_len``, ``slot``) with its
@@ -46,7 +48,7 @@ import torch
 
 from torch.distributed.tensor import DTensor
 
-from ..distributed.sharding import distribute_tree, write_block
+from ..distributed.sharding import distribute_tree
 from ..models.lm import DecodeGraph, Model
 from ..models.spec import torch_dtype, tree_leaves
 from ..obs import metrics as _metrics
@@ -130,8 +132,8 @@ class Engine:
                       if DecodeGraph.takes(self.cache) else None)
         self.pos = np.zeros(self.B, np.int64)         # next write index / slot
         self.slots: List[Optional[Request]] = [None] * self.B
-        self._prefill_t: List[Tuple[int, _Timer]] = []
-        self._decode_t: List[_Timer] = []
+        self._prefill_ms: Dict[int, float] = {}
+        self._decode_ms: List[float] = []
 
     # -- prefill --------------------------------------------------------------
 
@@ -158,29 +160,14 @@ class Engine:
         toks = torch.as_tensor(np.asarray(req.prompt), dtype=torch.long,
                                device=self.device)[None, :]
         last_logits, caches = self._prefill(toks)
-        S_p = toks.shape[1]
-        # handoff: set the prefill K/V (or conv and SSM states) into the
-        # slot's cache rows — a set, so a recycled slot keeps no stale row
-        # that the decode mask would let through
-        layers = self.cache["layers"]
         with _span("engine.admit.handoff"):
-            for name, c in caches.items():
-                dst = layers[name]
-                if "k" in c:  # attention
-                    for kv in ("k", "v"):
-                        dst[kv] = write_block(dst[kv], (slice(None), slot,
-                                                        slice(0, S_p)),
-                                              c[kv][:, 0])
-                else:          # mamba states
-                    for st in ("conv", "ssm"):
-                        dst[st] = write_block(dst[st], (slice(None), slot),
-                                              c[st][:, 0])
+            self.model.write_slot(self.cache, caches, slot)
         timer.stop()
-        self.pos[slot] = S_p
+        self.pos[slot] = toks.shape[1]
         req.out = []
         with _span("engine.admit.first_token"):
             first = self._sample(_host(last_logits)[0])
-        self._prefill_t.append((req.uid, timer))
+        self._prefill_ms[req.uid] = timer.ms()
         req.out.append(int(first))
         self.slots[slot] = req
 
@@ -219,14 +206,14 @@ class Engine:
             feed = feed.to(self.device)
             _metrics.counter("model.decode.eager").inc()
             timer = _Timer(self.device)
-            logits, self.cache = self.model.decode_step(
+            logits, _ = self.model.decode_step(
                 self.params, self.cache, feed[0][:, None], feed[1])
         timer.stop()
-        self._decode_t.append(timer)
         out = []
         with _span("engine.step.fetch") as sp:
             logits_np = _host(logits)
             sp.set(bytes=logits_np.nbytes)
+        self._decode_ms.append(timer.ms())
         logits_np = logits_np[:, 0]
         with _span("engine.step.sample"):
             for i in live:
@@ -259,8 +246,8 @@ class Engine:
         forward and cache handoff) and every decode step (a list: the
         graph's replay, or the eager step), in order. On a card: CUDA
         events."""
-        return {"prefill_ms": {uid: t.ms() for uid, t in self._prefill_t},
-                "decode_ms": [t.ms() for t in self._decode_t]}
+        return {"prefill_ms": dict(self._prefill_ms),
+                "decode_ms": list(self._decode_ms)}
 
 
 __all__ = ["Engine", "Request"]

@@ -191,7 +191,8 @@ def test_shape_disagreements_raise():
 
 def test_attention_decode_takes_the_kernel_for_a_plain_cache():
     """A float32 cache goes to ``decode_attention`` and a float64 one to
-    ``_sdpa``, each counted; the two agree on the same values."""
+    ``_sdpa``, each counted; the two agree on the same values, and each
+    cache gets its new rows at ``pos`` in place."""
     from repro_torch.configs import get_config
     from repro_torch.models.spec import init_params
     from repro_torch.obs import metrics
@@ -209,9 +210,12 @@ def test_attention_decode_takes_the_kernel_for_a_plain_cache():
             (2, 32, c.n_kv_heads, c.hd))).to(wide) for s in (2, 3))
         before = {n: metrics.counter(f"attention.decode.{n}").value
                   for n in ("kernel", "plain")}
-        y, k2, v2 = L.attention_decode(p, c, x, ck, cv,
-                                       torch.tensor([5, 30]))
-        assert k2 is ck and v2 is cv
+        old = [ck.clone(), cv.clone()]
+        y = L.attention_decode(p, c, x, ck, cv, torch.tensor([5, 30]))
+        at = torch.zeros(2, 32, dtype=torch.bool)
+        at[[0, 1], [5, 30]] = True
+        for new, was in zip((ck, cv), old):
+            assert torch.equal((new != was).any(-1).any(-1), at)
         counts[dt] = tuple(metrics.counter(f"attention.decode.{n}").value
                            - before[n] for n in ("kernel", "plain"))
         out[dt] = y

@@ -13,7 +13,9 @@ FSDP of 'embed' over 'data') on the reference's own parameters
   magnitude, at least 1) of the unsharded port's, and of JAX's;
 * 16 greedy decode steps on a cache placed by ``cache_axes`` (the
   sequence over 'model'): each step's logits within 1e-4 of scale and
-  the greedy tokens equal;
+  the greedy tokens equal, ``decode_step`` returning the cache it was
+  given and every leaf's local shard keeping its data pointer (written
+  where it lies, never restacked);
 * granite-moe's logits are held at 5e-3 of scale instead, above one
   bfloat16 step of a gate (2^-8 = 3.9e-3): its gates are rounded to
   bfloat16 for the combine (as in the reference), and the sharded
@@ -113,6 +115,14 @@ def _full(t):
     return t.detach().float().numpy()
 
 
+def _local_ptrs(tree) -> list:
+    """The data pointer of every leaf's local tensor (a DTensor's shard)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.models.spec import tree_leaves
+    return [(t.to_local() if isinstance(t, DTensor) else t).data_ptr()
+            for t in tree_leaves(tree)]
+
+
 def _run_model(arch, case, mesh=None):
     """Forward logits, decode logits and tokens, and both train steps of
     one arch: on DTensors placed on ``mesh``, or plain without one."""
@@ -158,15 +168,18 @@ def _run_model(arch, case, mesh=None):
                     params, model.encode(params, frames))
             tok = torch.from_numpy(case["batch"]["tokens"][:, :1]).long()
             steps, toks = [], []
+            ptrs, same = _local_ptrs(cache), True
             for i in range(STEPS):
                 pos = torch.full((B,), i, dtype=torch.long)
-                lg, cache = model.decode_step(params, cache, tok, pos)
+                lg, again = model.decode_step(params, cache, tok, pos)
+                same &= again is cache
                 lg = _full(lg)[:, 0]
                 steps.append(lg)
                 tok = torch.from_numpy(lg[:, :cfg.vocab].argmax(-1))[:, None]
                 toks.append(tok[:, 0].numpy())
             out["decode_logits"] = np.stack(steps)
             out["decode_tokens"] = np.stack(toks)
+            out["decode_in_place"] = same and _local_ptrs(cache) == ptrs
         tb = batch_of(case["train_batch"])
         with train_meter:
             _, grads = make_grad_fn(model, TrainConfig(**TRAIN["float32"]))(
@@ -484,9 +497,13 @@ def test_forward_matches_unsharded_and_jax(runs, arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_matches_unsharded(runs, arch):
+    """And every rank's decode step writes each cache leaf's local shard
+    where it lies: the cache is never restacked."""
     want = runs["plain"][arch]
+    assert want["decode_in_place"]
     for r in runs["ranks"]:
         got = r[arch]
+        assert got["decode_in_place"]
         np.testing.assert_array_equal(got["decode_tokens"],
                                       want["decode_tokens"])
         for i in range(STEPS):

@@ -367,8 +367,8 @@ def test_split_k_decode_reduces_the_logits_closed_form():
             pos = torch.full((B,), 5, dtype=torch.long, device="meta")
             meter = CollectiveMeter()
             with meter:
-                y, ck, _ = L.attention_decode(p, cfg, x, *cache, pos)
-    assert ck.placements == (Shard(0), Shard(1))
+                y = L.attention_decode(p, cfg, x, *cache, pos)
+    assert cache[0].placements == (Shard(0), Shard(1))
     assert y.placements == (Shard(0), Replicate())
     logits_local = (B // 16) * KV * rep * (S // 16) * f32
     stat = (B // 16) * KV * rep * 1 * 1 * f32
