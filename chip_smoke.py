@@ -31,8 +31,14 @@ each printing one JSON line per record:
              (olmo-1b, 32 slots at rows 256–1280 and 16 at 1536–1984 of a
              2048-row bf16 cache) and at granite-4.0-h-micro's (GQA 32 on
              8 heads of 64, 32 slots at rows 2048–8255 of an 8448-row
-             cache, the logits divided by 64), rows past ``pos`` at NaN;
-             within one bf16 rounding plus 1e-5 of the values' scale;
+             cache, the logits divided by 64), rows past ``pos`` at NaN,
+             within one bf16 rounding plus 1e-5 of the values' scale; and
+             for ssd_scan at a granite-4.0-h-micro prefill's shapes (one
+             prompt of 2048, 5000 and 8000 tokens, 64 heads of 64, state
+             128, chunk 256, bf16), its max abs error against a float64
+             run of the plain version at most twice the plain float32
+             path's, for y and the final state, with each path's peak
+             memory above its inputs;
              the compared call's launch count; kernel, plain and library
              times from CUDA events — per call, and for the kernel and the
              library also per launch replayed from a CUDA graph, without the
@@ -45,7 +51,7 @@ each printing one JSON line per record:
              (splitk_matvec), ``F.conv2d`` with ``groups=B`` (the convs),
              ``F.conv2d`` of the unpacked ±1 floats (binary_conv2d) and
              ``F.scaled_dot_product_attention`` over the whole cache under
-             the ``pos`` mask (decode_attention); TF32 is
+             the ``pos`` mask (decode_attention), none for ssd_scan; TF32 is
              off for both matmul and cuDNN. For ``conv2d_shift``,
              ``splitk_matvec`` and ``binary_matmul`` at their served shapes
              and ``binary_conv2d`` at the ops path's, also the host time of
@@ -169,7 +175,20 @@ each printing one JSON line per record:
              (``model.decode.graph``), and is served again with every step
              eager (``DecodeGraph.takes`` patched to refuse): the same
              tokens and launches; field ``graph``: the capture's seconds,
-             the median decode ms of both runs, the tokens equal.
+             the median decode ms of both runs, the tokens equal. The
+             Mamba archs (mamba2-370m, granite-4.0-h-micro) are served once
+             more with every chunked scan on the plain path
+             (``mamba._kernel_takes`` patched to refuse): the bf16 run
+             counts ``mamba.ssd.kernel`` (and ``ssd_scan`` launches) once a
+             Mamba layer a prefill and ``mamba.ssd.plain`` never, the
+             patched run the reverse; field ``ssd``: the tokens equal, or
+             at the first that parts each path's logit gap between the two
+             tokens. Field ``ssd_prefill`` (also a record of its own per
+             length): one granite-4.0-h-micro prefill of 2048, 5000 and
+             8000 tokens on each path, CUDA-event ms of the forward and of
+             its 36 scans, the forward's peak memory above the weights and
+             a scan's largest peak, which must fall by at least 1 GB at
+             8000 tokens on the kernel.
 9. train   — the model stack's training half on ``cuda``. Record ``train``:
              olmo-1b at full width in bf16 through ``launch.train.train``
              (the CLI's path; weights from a seeded ``torch.Generator``),
@@ -279,7 +298,7 @@ each printing one JSON line per record:
 Then the per-kernel summary line ``{"kernels": [...]}`` (``launches`` from
 the serve phase for binary_matmul, splitk_matvec and conv2d_shift, from the
 ops phase for conv2d_shift_tiled and binary_conv2d, from the lm phase's
-serving runs for decode_attention; the other numbers from
+serving runs for decode_attention and ssd_scan; the other numbers from
 each kernel's main-path row, ``library_graph_ms`` the library yardstick
 replayed from a CUDA graph), the card's name and power limit from
 ``nvidia-smi``, and the last line ``{"ok": true, "device": {...}}``. Any
@@ -634,6 +653,99 @@ def rows_decode_attention(torch):
     return rows
 
 
+# ssd_scan at a granite-4.0-h-micro prefill's shapes: one prompt of each
+# length, 64 heads of 64, state 128, one group, chunk 256, bf16 x, B and C
+SSD_SHAPES = (2048, 5000, 8000)
+SSD_WIDTHS = (64, 64, 128, 256)      # heads, head size, state, chunk
+
+
+def peak_over(torch, fn) -> int:
+    """The peak memory ``fn()`` allocates above what was allocated before
+    it (its result held until the peak is read)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return peak
+
+
+def rows_ssd_scan(torch):
+    """``ssd_scan`` at a granite prefill's shapes against its plain version
+    (``models/mamba.py::ssd_plain``) and a float64 run of the plain version
+    on the same inputs, A and dt drawn as Mamba-2 publishes them (A uniform
+    in [1, 16], dt log-uniform in [0.001, 0.1]): the kernel's max abs error
+    against float64 at most twice the plain float32 path's, for y and the
+    final state. Kernel ms per call and replayed from a CUDA graph, plain
+    ms, each path's peak memory above its inputs, and the bound: the
+    scan's flops (``ssd_scan.flops``) as float32 FMAs at 67 TFLOP/s
+    against its operands read and outputs written once. No library call
+    computes the scan."""
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.models.mamba import ssd_plain
+    H, P, N, L = SSD_WIDTHS
+    rng = np.random.default_rng(34)
+
+    def f32(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).cuda()
+    rows = []
+    for S in SSD_SHAPES:
+        x = f32(rng.standard_normal((1, S, H, P))).bfloat16()
+        B, C = (f32(rng.standard_normal((1, S, N))).bfloat16()
+                for _ in range(2))
+        A = -f32(rng.uniform(1.0, 16.0, H))
+        dt = f32(np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), (1, S, H))))
+        D = f32(rng.standard_normal(H))
+        args = (x, dt, A, B, C, D, L)
+        SS.ssd_scan.launches = 0
+        y, state = SS.ssd_scan(*args)
+        launches = SS.ssd_scan.launches
+        py, pstate = ssd_plain(*args)
+        wy, wstate = ssd_plain(*(t.double() for t in args[:6]), L)
+        torch.cuda.synchronize()
+        check(launches == 1, f"ssd_scan launched {launches} times for one "
+              f"call")
+        errs = {}
+        for name, got, plain, want in (("y", y, py, wy),
+                                       ("state", state, pstate, wstate)):
+            errs[name] = {"kernel": float((got.double() - want).abs().max()),
+                          "plain": float((plain.double() - want).abs().max()),
+                          "scale": float(want.abs().max())}
+            check(errs[name]["kernel"] <= 2 * errs[name]["plain"],
+                  f"ssd_scan at {S} tokens: {name} {errs[name]} against "
+                  f"float64, over twice the plain path's")
+        del py, pstate, wy, wstate
+        torch.cuda.empty_cache()
+        nbytes = _nbytes(x, dt, A, B, C, D, y, state)
+        flops = SS.flops(1, S, H, P, N, L)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / F32_FLOPS_PER_S * 1e3
+        row = {
+            "shape": [1, S, H, P, N, L, "bf16"],
+            "max_abs_err": errs["y"]["kernel"], "against": "float64",
+            "errors": errs, "launches": launches,
+            "ms": cuda_ms(torch, lambda: SS.ssd_scan(*args)),
+            "graph_ms": graph_ms(torch, lambda: SS.ssd_scan(*args)),
+            "plain_ms": cuda_ms(torch, lambda: ssd_plain(*args), trials=5,
+                                per_trial=4),
+            "library_ms": None, "library_graph_ms": None,
+            "peak_bytes": {"kernel": peak_over(torch,
+                                               lambda: SS.ssd_scan(*args)),
+                           "plain": peak_over(torch,
+                                              lambda: ssd_plain(*args))},
+            "bytes": nbytes, "ops": [flops],
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        }
+        emit("kernels", kernel="ssd_scan", **row)
+        rows.append(row)
+        del x, B, C, dt, y, state, args
+        torch.cuda.empty_cache()
+    return rows
+
+
 def _grouped_conv(torch, a, k):
     """The library yardstick: F.conv2d over B images as B groups."""
     import torch.nn.functional as F
@@ -956,7 +1068,8 @@ def phase_kernels(torch, rates) -> dict:
             "conv2d_shift": rows_conv(torch),
             "conv2d_shift_tiled": rows_tiled(torch),
             "binary_conv2d": rows_binary_conv(torch, rates),
-            "decode_attention": rows_decode_attention(torch)}
+            "decode_attention": rows_decode_attention(torch),
+            "ssd_scan": rows_ssd_scan(torch)}
 
 
 def correlate(img, K, N):
@@ -1167,7 +1280,8 @@ def serve_round(svc, reqs):
 # the crossbar kernels, whose launches the crossbar phases count, and the
 # model path's decode kernel, whose launches the lm phase counts
 COUNTED = ("binary_matmul", "splitk_matvec", "conv2d_shift",
-           "conv2d_shift_tiled", "binary_conv2d", "decode_attention")
+           "conv2d_shift_tiled", "binary_conv2d", "decode_attention",
+           "ssd_scan")
 
 
 def launch_counters():
@@ -2052,15 +2166,193 @@ def lm_serve(torch, arch: str) -> dict:
             "first_tokens": {u: results[u][:4] for u in range(2)}}
 
 
-def phase_lm(torch, card: str) -> None:
+def _last_logits(torch, model, params, seq) -> "torch.Tensor":
+    with torch.no_grad():
+        logits, _ = model.forward(params, {"tokens": torch.as_tensor(
+            seq, dtype=torch.long, device="cuda")[None]})
+    return logits[0, -1].float()
+
+
+def lm_ssd_paths(torch, arch: str) -> dict:
+    """``arch`` served as :func:`lm_serve` serves it, with every chunked
+    scan through the ``ssd_scan`` kernel, then through the plain path
+    (``mamba._kernel_takes`` patched to refuse): each run's
+    ``mamba.ssd.kernel`` and ``mamba.ssd.plain`` counts (the kernel run's
+    must be one a Mamba layer a prefill, with ``ssd_scan.launches`` equal,
+    and none plain; the plain run's the reverse), and the greedy tokens
+    equal, or at the first that parts, each path's logit gap between its
+    token and the other's (a forward over the prompt and the tokens
+    before it)."""
+    from unittest import mock
+
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import mamba
+    from repro_torch.obs import metrics
+    names = ("mamba.ssd.kernel", "mamba.ssd.plain")
+
+    def run():
+        counts0 = [metrics.counter(n).value for n in names]
+        launches0 = SS.ssd_scan.launches
+        rep = serve(arch, requests=8, max_new=16, max_batch=4, max_seq=128,
+                    device="cuda")
+        rep["counts"] = [metrics.counter(n).value - v
+                         for n, v in zip(names, counts0)]
+        rep["launches"] = SS.ssd_scan.launches - launches0
+        return rep
+    torch.cuda.empty_cache()
+    kern = run()
+    cfg = kern["cfg"]
+    scans = 8 * sum(not cfg.is_attn_layer(i) for i in range(cfg.n_layers))
+    check(kern["counts"] == [scans, 0] and kern["launches"] == scans,
+          f"{arch}: the kernel run counted {kern['counts']} scans "
+          f"(kernel, plain) and {kern['launches']} launches; want {scans}")
+    with mock.patch.object(mamba, "_kernel_takes", lambda *a: False):
+        plain = run()
+        del plain["engine"]
+    check(plain["counts"] == [0, scans] and plain["launches"] == 0,
+          f"{arch}: the plain run counted {plain['counts']} scans")
+    parted = []
+    for req in kern["requests"]:
+        a, b = kern["results"][req.uid], plain["results"][req.uid]
+        k = next((i for i, (u, v) in enumerate(zip(a, b)) if u != v), None)
+        if k is None:
+            continue
+        seq = np.concatenate([req.prompt, a[:k]])
+        eng = kern["engine"]
+        lk = _last_logits(torch, eng.model, eng.params, seq)
+        with mock.patch.object(mamba, "_kernel_takes", lambda *a: False):
+            lp = _last_logits(torch, eng.model, eng.params, seq)
+        parted.append({"uid": req.uid, "at": k, "kernel_token": a[k],
+                       "plain_token": b[k],
+                       "kernel_gap": float(lk[a[k]] - lk[b[k]]),
+                       "plain_gap": float(lp[b[k]] - lp[a[k]]),
+                       "logit_scale": float(lk.abs().max())})
+    del kern["engine"]
+    torch.cuda.empty_cache()
+    n_tok = sum(len(v) for v in kern["results"].values())
+    equal = sum(u == v for uid in kern["results"] for u, v in
+                zip(kern["results"][uid], plain["results"][uid]))
+    return {"arch": arch, "scans": scans, "launches": kern["launches"],
+            "counts_kernel_run": dict(zip(("kernel", "plain"),
+                                          kern["counts"])),
+            "counts_plain_run": dict(zip(("kernel", "plain"),
+                                         plain["counts"])),
+            "tokens": n_tok, "tokens_equal": equal, "parted": parted,
+            "wall_s": {"kernel": kern["wall_s"], "plain": plain["wall_s"]}}
+
+
+def ssd_prefill(torch, arch: str = "granite-4.0-h-micro") -> dict:
+    """One prefill of ``arch`` (``Model.forward`` at B = 1 in its bf16,
+    weights from a seeded ``torch.Generator``) of each of ``SSD_SHAPES``
+    tokens, with the scans on the kernel and on the plain path (patched):
+    CUDA-event ms of the forward and of its scans (median of 3 after a
+    warm-up), the scans each path counted, the forward's peak memory above
+    the weights, and, in another forward, the largest peak of one scan
+    above what was allocated when it began. The kernel path allocates no
+    ``(c, h, l, l)`` float32 tensor: at 8000 tokens a scan's peak must fall
+    by at least 1 GB."""
+    from unittest import mock
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, mamba
+    from repro_torch.models.spec import init_params
+    from repro_torch.obs import metrics
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    params = init_params(model.specs(),
+                         torch.Generator(device="cuda").manual_seed(3),
+                         cfg.dtype)
+    orig = mamba.ssd_chunked
+    g = torch.Generator(device="cuda").manual_seed(4)
+    names = ("mamba.ssd.kernel", "mamba.ssd.plain")
+    out = {"arch": arch}
+
+    def forward(toks, scan):
+        with torch.no_grad(), mock.patch.object(mamba, "ssd_chunked", scan):
+            return model.forward(params, {"tokens": toks})
+
+    for S in SSD_SHAPES:
+        toks = torch.randint(0, cfg.vocab, (1, S), generator=g,
+                             device="cuda")
+        row = {}
+        for path in ("kernel", "plain"):
+            refuse = mock.patch.object(mamba, "_kernel_takes",
+                                       lambda *a: False)
+            with (refuse if path == "plain" else contextlib.nullcontext()):
+                events, peaks = [], []
+
+                def timed(*a, **k):
+                    s = torch.cuda.Event(enable_timing=True)
+                    e = torch.cuda.Event(enable_timing=True)
+                    s.record()
+                    res = orig(*a, **k)
+                    e.record()
+                    events.append((s, e))
+                    return res
+
+                def peaked(*a, **k):
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    base = torch.cuda.memory_allocated()
+                    res = orig(*a, **k)
+                    torch.cuda.synchronize()
+                    peaks.append(torch.cuda.max_memory_allocated() - base)
+                    return res
+                trials = []
+                counts0 = [metrics.counter(n).value for n in names]
+                for _ in range(4):
+                    events.clear()
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    torch.cuda.synchronize()
+                    start.record()
+                    res = forward(toks, timed)
+                    end.record()
+                    torch.cuda.synchronize()
+                    trials.append((start.elapsed_time(end),
+                                   sum(a.elapsed_time(b) for a, b in events)))
+                    del res
+                counts = [metrics.counter(n).value - v
+                          for n, v in zip(names, counts0)]
+                torch.cuda.empty_cache()
+                whole = peak_over(torch, lambda: forward(toks, orig))
+                forward(toks, peaked)
+                trials = sorted(trials[1:])
+                row[path] = {"forward_ms": trials[1][0],
+                             "scans_ms": trials[1][1],
+                             "scans": len(events),
+                             "counts": dict(zip(("kernel", "plain"),
+                                                counts)),
+                             "peak_bytes": whole,
+                             "scan_peak_bytes": max(peaks)}
+                torch.cuda.empty_cache()
+        n_scans = row["kernel"]["scans"]
+        check(row["kernel"]["counts"] == {"kernel": 4 * n_scans, "plain": 0}
+              and row["plain"]["counts"] == {"kernel": 0,
+                                             "plain": 4 * n_scans},
+              f"{arch} prefill of {S}: scans counted {row}")
+        out[S] = row
+        emit("ssd_prefill", tokens=S, **row)
+    fell = (out[SSD_SHAPES[-1]]["plain"]["scan_peak_bytes"]
+            - out[SSD_SHAPES[-1]]["kernel"]["scan_peak_bytes"])
+    check(fell >= 1e9, f"{arch}: a scan's peak at {SSD_SHAPES[-1]} tokens "
+          f"fell by only {fell} bytes on the kernel")
+    del model, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_lm(torch, card: str) -> dict:
     """The model stack's serving path on the card at full width: olmo-1b,
     mamba2-370m and granite-4.0-h-micro served in bf16 through the
     launcher (per-request prefill ms and decode-step ms from CUDA events,
     tokens per second, peak memory, the decode step's bytes bound),
     olmo-1b and mamba2-370m checked in float32 (card against CPU, decode
-    against the forward), and a forward of matpim-bnn. Any mismatch
-    raises. Returns decode_attention's launches in the bf16 serving
-    runs."""
+    against the forward), the Mamba archs' scans on the kernel and on the
+    plain path (:func:`lm_ssd_paths`, :func:`ssd_prefill`), and a forward
+    of matpim-bnn. Any mismatch raises. Returns the launches of
+    decode_attention and of ssd_scan in the bf16 serving runs."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.models.spec import init_params
@@ -2072,6 +2364,9 @@ def phase_lm(torch, card: str) -> None:
           (16, 2048, 50304) and olmo["dtype"] == "bfloat16",
           f"olmo-1b served at {olmo}")
     f32 = {arch: lm_check_f32(torch, arch) for arch in LM_F32}
+    ssd = {arch: lm_ssd_paths(torch, arch) for arch in LM_SERVED
+           if get_config(arch).ssm_state}
+    prefill = ssd_prefill(torch)
     cfg = get_config("matpim-bnn")
     model = build_model(cfg)
     params = init_params(model.specs(),
@@ -2090,12 +2385,15 @@ def phase_lm(torch, card: str) -> None:
     check(tuple(logits.shape) == (4, 64, cfg.vocab_padded)
           and bool(torch.isfinite(logits).all()),
           f"matpim-bnn logits {tuple(logits.shape)}")
-    emit("lm", card=card, served=served, f32=f32,
+    emit("lm", card=card, served=served, f32=f32, ssd=ssd,
+         ssd_prefill=prefill,
          bnn={"n_layers": cfg.n_layers, "d_model": cfg.d_model,
               "d_ff": cfg.d_ff, "batch": [4, 64], "forward_ms": {"first": bnn_ms[0],
                                                 "warm": bnn_ms[1]},
               "dtype": cfg.dtype})
-    return sum(s["decode_attention_launches"] for s in served.values())
+    return {"decode_attention": sum(s["decode_attention_launches"]
+                                    for s in served.values()),
+            "ssd_scan": sum(r["launches"] for r in ssd.values())}
 
 
 # H100 SXM dense bf16 tensor-core rate (NVIDIA's data sheet): the train
@@ -2881,6 +3179,7 @@ SOURCES = {
                       "src/repro/kernels/conv2d_shift.py:100"),
     "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                          "none"),
+    "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu", "none"),
 }
 
 
@@ -2906,7 +3205,7 @@ def main() -> int:
                      if n in ("conv2d_shift_tiled", "binary_conv2d")})
     phase_apps(torch)
     phase_faults(torch)
-    launches["decode_attention"] = phase_lm(torch, name_limit)
+    launches.update(phase_lm(torch, name_limit))
     phase_train(torch, name_limit)
     phase_oracle(torch)
     phase_dryrun(torch, name_limit)

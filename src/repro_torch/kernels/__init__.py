@@ -16,12 +16,16 @@ Each is CUDA C++ for sm_90a in place of a Pallas kernel of
                           (all three ``conv2d_shift.py``,
                           ``csrc/conv2d_shift.cu``)
 
-and one that replaces no Pallas kernel, on the model stack's decode path:
+and two that replace no Pallas kernel, on the model stack's path:
 
     decode_attention    — split-K flash decoding of one query row against
                           a KV cache's valid rows, read once in 16-byte
                           loads (``decode_attention.py``,
                           ``csrc/decode_attention.cu``)
+    ssd_scan            — Mamba-2's chunked SSD scan of a prefill or
+                          forward in three launches, no ``(c, h, l, l)``
+                          intermediate in device memory (``ssd_scan.py``,
+                          ``csrc/ssd_scan.cu``)
 
 The wrappers share one host path (:func:`launch`): the checks and values
 that depend only on shapes and dtypes are computed once per signature and
@@ -30,7 +34,8 @@ cached (:class:`Signature`, with the launch arguments packed in a
 layout checks, one ``new_empty``, one stream read and one ctypes call with
 the data pointers (two operands and the output; ``decode_attention``'s
 four operands, output and scratch), the packed arguments' address and the
-stream.
+stream. ``ssd_scan``, with two outputs and strided operands, calls
+:func:`entry` from its own wrapper.
 :func:`staged_rows` is the launch plan shared by the two kernels that stage
 whole short rows in shared memory (``splitk_matvec``, ``binary_matmul``).
 

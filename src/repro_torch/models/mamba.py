@@ -8,7 +8,9 @@ Chunked algorithm: an intra-chunk quadratic attention-like term plus an
 inter-chunk state recurrence, a loop over chunks where the reference runs
 ``lax.scan``. A sequence of any length is taken: a last chunk shorter
 than the others (ragged) is padded with rows that neither decay nor add to
-the state (:func:`ssd_chunked`), where the reference asserts a multiple.
+the state (:func:`ssd_plain`), where the reference asserts a multiple. On
+plain CUDA tensors without gradients the scan is the hand-written kernel
+``kernels/ssd_scan.py`` (:func:`ssd_chunked`), which masks those rows.
 Under ``ssm_gated_norm`` the gated output ``y·silu(z)`` goes through
 Mamba-2's RMSNorm and its weight before ``out_proj`` (:func:`_gate`).
 The state scan is not a matvec-with-reduction shape, so the paper's
@@ -26,6 +28,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from ..configs.base import ModelConfig
 from ..distributed.sharding import as_dtensor, constrain, redistribute
 from ..distributed.spmd import cumsum, einsum, reshape
+from ..kernels import ssd_scan as _scan
 from ..obs import metrics as _metrics
 from ..obs.trace import span as _span
 from .spec import Spec, wide
@@ -149,27 +152,59 @@ def ssd_chunked(x, dt, A, B, C, D, chunk: int = CHUNK,
 
     Returns y (b,s,h,p) and the final state (b,h,p,n).
 
-    A sequence of up to ``chunk`` rows is one chunk. A longer one that is
-    not a multiple of ``chunk`` is padded to the next multiple with rows of
-    ``dt`` = 0 and zero x, B, C: a padded row neither decays the state
-    (``exp(0·A) = 1``) nor adds to it (``dt·B·xᵀ = 0``), and no real row
-    reads it (the intra-chunk term is causal), so the final state is the
-    state after the last real row; the padded rows' outputs are dropped.
-    A multiple of ``chunk`` runs as before, bit for bit. Counted in
-    ``mamba.ssd.tokens`` and ``mamba.ssd.pad_rows`` (always on), spanned
-    by ``mamba.ssd`` (``tokens``, ``pad_rows``).
+    Where every operand is a plain CUDA tensor (no DTensor), x is float32
+    or bfloat16 and no gradient is taken (grad mode off, or no operand
+    requiring one), the scan is the hand-written kernel
+    (:func:`~repro_torch.kernels.ssd_scan.ssd_scan`); everywhere else
+    (the CPU, float64, DTensors, training) it is :func:`ssd_plain`. Both
+    compute the same function in float32 (float64 for a float64 model,
+    plain only). The calls of each are counted in ``mamba.ssd.kernel`` and
+    ``mamba.ssd.plain``; the tokens and the rows a ragged last chunk lacks
+    in ``mamba.ssd.tokens`` and ``mamba.ssd.pad_rows``, the same on both
+    paths (always on); spanned by ``mamba.ssd`` (``tokens``,
+    ``pad_rows``).
     """
     b, s = x.shape[:2]
     pad = -s % min(chunk, s)
     _metrics.counter("mamba.ssd.tokens").inc(b * s)
     _metrics.counter("mamba.ssd.pad_rows").inc(b * pad)
     with _span("mamba.ssd", tokens=b * s, pad_rows=b * pad):
-        if pad:
-            x, B, C = (F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
-                       for t in (x, B, C))
-            dt = F.pad(dt, (0, 0, 0, pad))
-        y, state = _ssd(x, dt, A, B, C, D, min(chunk, s), init_state)
-        return (y[:, :s] if pad else y), state
+        if _kernel_takes(x, dt, A, B, C, D, init_state):
+            _metrics.counter("mamba.ssd.kernel").inc()
+            return _scan.ssd_scan(x, dt, A, B, C, D, chunk, init_state)
+        _metrics.counter("mamba.ssd.plain").inc()
+        return ssd_plain(x, dt, A, B, C, D, chunk, init_state)
+
+
+def _kernel_takes(x, *rest) -> bool:
+    """Whether :func:`ssd_chunked` runs the kernel on these operands."""
+    ops = (x,) + tuple(t for t in rest if t is not None)
+    return (x.dtype in _scan.DTYPES
+            and all(t.is_cuda and not isinstance(t, DTensor) for t in ops)
+            and not (torch.is_grad_enabled()
+                     and any(t.requires_grad for t in ops)))
+
+
+def ssd_plain(x, dt, A, B, C, D, chunk: int = CHUNK,
+              init_state: Optional[torch.Tensor] = None):
+    """The plain PyTorch version of :func:`ssd_chunked`.
+
+    A sequence of up to ``chunk`` rows is one chunk. A longer one that is
+    not a multiple of ``chunk`` is padded to the next multiple with rows of
+    ``dt`` = 0 and zero x, B, C: a padded row neither decays the state
+    (``exp(0·A) = 1``) nor adds to it (``dt·B·xᵀ = 0``), and no real row
+    reads it (the intra-chunk term is causal), so the final state is the
+    state after the last real row; the padded rows' outputs are dropped.
+    A multiple of ``chunk`` runs as before, bit for bit.
+    """
+    s = x.shape[1]
+    pad = -s % min(chunk, s)
+    if pad:
+        x, B, C = (F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+                   for t in (x, B, C))
+        dt = F.pad(dt, (0, 0, 0, pad))
+    y, state = _ssd(x, dt, A, B, C, D, min(chunk, s), init_state)
+    return (y[:, :s] if pad else y), state
 
 
 def _ssd(x, dt, A, B, C, D, chunk: int, init_state):
@@ -294,4 +329,4 @@ def apply_mamba_step(p, cfg: ModelConfig, x, conv_state, ssm_state):
 
 
 __all__ = ["CHUNK", "apply_mamba", "apply_mamba_step", "mamba_specs",
-           "ssd_chunked", "ssd_step", "tail_rows"]
+           "ssd_chunked", "ssd_plain", "ssd_step", "tail_rows"]

@@ -278,6 +278,29 @@ def test_ragged_ssd_matches_the_recurrence(s):
     _close(state, h, SCAN_TOL)
 
 
+def test_ssd_paths_are_counted():
+    """Off the card every scan is the plain path's, counted in
+    ``mamba.ssd.plain``: float32 and float64 on the CPU, with gradients on,
+    and on ``meta``; ``mamba.ssd.kernel`` does not move, and the plain
+    path's bits are :func:`mamba.ssd_plain`'s."""
+    x, dt, A, B, C, D = _scan_inputs(37, 5)
+    kernel = metrics.counter("mamba.ssd.kernel").value
+    plain = metrics.counter("mamba.ssd.plain").value
+    got = M.ssd_chunked(x, dt, A, B, C, D, chunk=CHUNK)
+    want = M.ssd_plain(x, dt, A, B, C, D, CHUNK)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    M.ssd_chunked(*(t.double() for t in (x, dt, A, B, C, D)), chunk=CHUNK)
+    xg = x.clone().requires_grad_()
+    y, _ = M.ssd_chunked(xg, dt, A, B, C, D, chunk=CHUNK)
+    y.sum().backward()
+    assert xg.grad is not None and torch.isfinite(xg.grad).all()
+    y, state = M.ssd_chunked(*(t.to("meta") for t in (x, dt, A, B, C, D)),
+                             chunk=CHUNK)
+    assert y.shape == x.shape and state.shape == (2, 3, 4, 5)
+    assert metrics.counter("mamba.ssd.plain").value - plain == 4
+    assert metrics.counter("mamba.ssd.kernel").value == kernel
+
+
 # -- defaults add no operation ------------------------------------------------
 
 class _Ops(torch.utils._python_dispatch.TorchDispatchMode):
